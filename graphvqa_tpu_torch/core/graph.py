@@ -1,0 +1,94 @@
+"""Static-shape graph batch containers (port of ``graphvqa_tpu/core/graph.py``).
+
+Plain dataclasses of tensors with the JAX package's field names and padding
+conventions:
+
+  * nodes and edges of all graphs are concatenated into flat arrays of static
+    length ``nodes_pad`` / ``edges_pad``; padded nodes carry
+    ``node_graph == num_graphs``;
+  * edges are sorted by destination; padded edges are masked out of every
+    aggregation;
+  * ``edge_sym_sign`` is -1 for dataset-added reverse edges, else +1.
+
+The dense layout (the only one this slice ports): every graph is padded to
+exactly ``nodes_per_graph`` node rows and ``edges_per_graph`` edge rows, so
+graph g owns node rows [g*npg, (g+1)*npg) and edge rows [g*epg, (g+1)*epg),
+and flat arrays reshape to [B, npg, ...] / [B, epg, ...] for free.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from graphvqa_tpu_torch.core.device import DeviceLike, resolve_device
+
+
+def _move(obj, device: torch.device):
+    changes = {f.name: getattr(obj, f.name).to(device)
+               for f in dataclasses.fields(obj)
+               if isinstance(getattr(obj, f.name), torch.Tensor)}
+    return dataclasses.replace(obj, **changes)
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    """A padded batch of scene graphs.
+
+      node_tokens   [nodes_pad, max_obj_tokens] int32
+      node_graph    [nodes_pad] int32, graph id; num_graphs marks padding
+      node_mask     [nodes_pad] bool
+      edge_src      [edges_pad] int32, flat source node index
+      edge_dst      [edges_pad] int32, flat destination index, sorted
+      edge_tokens   [edges_pad, max_edge_tokens] int32
+      edge_mask     [edges_pad] bool
+      edge_sym_sign [edges_pad] float32
+      exec_bitmap   [nodes_pad, max_steps] float32
+    """
+    node_tokens: torch.Tensor
+    node_graph: torch.Tensor
+    node_mask: torch.Tensor
+    edge_src: torch.Tensor
+    edge_dst: torch.Tensor
+    edge_tokens: torch.Tensor
+    edge_mask: torch.Tensor
+    edge_sym_sign: torch.Tensor
+    exec_bitmap: torch.Tensor
+    num_graphs: int
+    nodes_per_graph: int = 0
+    edges_per_graph: int = 0
+
+    @property
+    def nodes_pad(self) -> int:
+        return self.node_tokens.shape[0]
+
+    @property
+    def edges_pad(self) -> int:
+        return self.edge_src.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.node_tokens.device
+
+    def to(self, device: DeviceLike = None) -> "GraphBatch":
+        return _move(self, resolve_device(device))
+
+
+@dataclasses.dataclass
+class QABatch:
+    """One eval batch: graphs plus tokenized text and labels.
+
+      questions          [B, question_len] int32
+      programs           [B * max_steps, program_len] int32
+      full_answers       [B, full_answer_len] int32
+      short_answer_label [B] int32
+    """
+    graphs: GraphBatch
+    questions: torch.Tensor
+    programs: torch.Tensor
+    full_answers: torch.Tensor
+    short_answer_label: torch.Tensor
+
+    def to(self, device: DeviceLike = None) -> "QABatch":
+        dev = resolve_device(device)
+        return dataclasses.replace(_move(self, dev), graphs=self.graphs.to(dev))

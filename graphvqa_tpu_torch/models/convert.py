@@ -1,0 +1,131 @@
+"""JAX-package variables -> the port's ``state_dict``.
+
+``from_jax_variables`` is the inverse of the JAX package's
+``models/torch_convert.py:convert_pipeline`` (kind="gat"): it takes the
+``{"params", "batch_stats"}`` trees of ``graphvqa_tpu.models.PipelineModel``
+as nested dicts of numpy arrays and returns reference-named torch tensors,
+which ``PipelineModel.load_state_dict`` takes as they are. Conventions undone:
+flax ``kernel`` [in, out] -> torch ``weight`` [out, in]; q/k/v projections ->
+one packed ``in_proj_weight`` [3D, D]; ``scale`` -> ``weight``; BatchNorm
+``mean``/``var`` -> ``running_mean``/``running_var``; GAT ``lin_lr`` ->
+``lin_l.weight`` and ``att_*`` [H, C] -> [1, H, C]. Numpy only, no jax.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _linear(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _layernorm(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _mha(sd: StateDict, prefix: str, p: Mapping) -> None:
+    names = ("q_proj", "k_proj", "v_proj")
+    sd[f"{prefix}.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(p[n]["kernel"]).T for n in names], axis=0))
+    sd[f"{prefix}.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(p[n]["bias"]) for n in names]))
+    _linear(sd, f"{prefix}.out_proj", p["out_proj"])
+
+
+def _stack(sd: StateDict, prefix: str, p: Mapping, decoder: bool) -> None:
+    i = 0
+    while f"layer_{i}" in p:
+        lp, src = f"{prefix}.layers.{i}", p[f"layer_{i}"]
+        _mha(sd, f"{lp}.self_attn", src["self_attn"])
+        if decoder:
+            _mha(sd, f"{lp}.multihead_attn", src["cross_attn"])
+        for n in ("linear1", "linear2"):
+            _linear(sd, f"{lp}.{n}", src[n])
+        for n in ("norm1", "norm2", "norm3") if decoder else ("norm1", "norm2"):
+            _layernorm(sd, f"{lp}.{n}", src[n])
+        i += 1
+    _layernorm(sd, f"{prefix}.norm", p["final_norm"])
+
+
+def _seq2(sd: StateDict, prefix: str, p: Mapping) -> None:
+    _linear(sd, f"{prefix}.0", p["lin1"])
+    _linear(sd, f"{prefix}.2", p["lin2"])
+
+
+def from_jax_variables(variables: Mapping) -> StateDict:
+    """``{"params": ..., "batch_stats": ...}`` of the JAX GAT pipeline ->
+    the port's ``state_dict`` (float32 tensors)."""
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    sd: StateDict = {}
+    sd["text_vocab_embedding.weight"] = _t(
+        p["text_vocab_embedding"]["embedding"])
+
+    sge = p["scene_graph_encoder"]
+    sd["scene_graph_encoder.sg_vocab_embedding.weight"] = _t(
+        sge["sg_vocab_embedding"]["embedding"])
+    base = "scene_graph_encoder.scene_graph_encoding_layer"
+    meta = sge["meta_layer"]
+    _seq2(sd, f"{base}.edge_model.edge_mlp", meta["edge_mlp"])
+    _seq2(sd, f"{base}.node_model.node_mlp_1", meta["node_mlp_1"])
+    _seq2(sd, f"{base}.node_model.node_mlp_2", meta["node_mlp_2"])
+    sd["scene_graph_encoder.graph_layer_norm.weight"] = _t(
+        np.reshape(sge["ln_weight"], (1,)))
+    sd["scene_graph_encoder.graph_layer_norm.bias"] = _t(
+        np.reshape(sge["ln_bias"], (1,)))
+
+    qe = p["question_encoder"]
+    _linear(sd, "question_encoder.emb_proj", qe["emb_proj"])
+    _stack(sd, "question_encoder.transformer_encoder", qe["encoder"], False)
+
+    pd = p["program_decoder"]
+    sd["program_decoder.query_embed.weight"] = _t(pd["query_embed"])
+    _linear(sd, "program_decoder.emb_proj", pd["emb_proj"])
+    _stack(sd, "program_decoder.coarse_decoder", pd["coarse_decoder"], True)
+    _stack(sd, "program_decoder.transformer_decoder", pd["fine_decoder"], True)
+    _linear(sd, "program_decoder.vocab_decoder", pd["vocab_decoder"])
+
+    if "full_answer_decoder" in p:
+        fa = p["full_answer_decoder"]
+        _linear(sd, "full_answer_decoder.emb_proj", fa["emb_proj"])
+        _stack(sd, "full_answer_decoder.transformer_decoder", fa["decoder"],
+               True)
+        _linear(sd, "full_answer_decoder.vocab_decoder", fa["vocab_decoder"])
+
+    eng = p["engine"]
+    eng_stats = stats.get("engine", {})
+    i = 0
+    while f"conv_{i}" in eng:
+        cp, conv = f"gat_seq.convs.{i}", eng[f"conv_{i}"]
+        sd[f"{cp}.lin_l.weight"] = _t(np.asarray(conv["lin_lr"]).T)
+        sd[f"{cp}.lin_e.weight"] = _t(np.asarray(conv["lin_e"]).T)
+        for a in ("att_l", "att_r", "att_e"):
+            sd[f"{cp}.{a}"] = _t(np.asarray(conv[a])[None])
+        sd[f"{cp}.bias"] = _t(conv["bias"])
+        i += 1
+    j = 0
+    while f"bn_{j}" in eng:
+        bp = f"gat_seq.bns.{j}"
+        _layernorm(sd, bp, eng[f"bn_{j}"])
+        sd[f"{bp}.running_mean"] = _t(eng_stats[f"bn_{j}"]["mean"])
+        sd[f"{bp}.running_var"] = _t(eng_stats[f"bn_{j}"]["var"])
+        sd[f"{bp}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        j += 1
+
+    pool = p["pooling"]
+    for n in ("gate_nn", "node_nn", "ques_nn"):
+        _seq2(sd, f"graph_global_attention_pooling.{n}", pool[n])
+    _linear(sd, "logit_fc.1", p["logit_fc_hidden"])
+    _linear(sd, "logit_fc.4", p["logit_fc_out"])
+    return sd

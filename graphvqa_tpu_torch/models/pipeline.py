@@ -1,0 +1,151 @@
+"""The pipeline model, GAT engine, greedy-sample path (port of
+``graphvqa_tpu/models/pipeline.py`` for ``kind="gat"``, ``sample=True``).
+
+  scene-graph encoder -> question encoder -> program decoder (instruction
+  vectors + greedy program tokens) -> GAT engine -> conditional pooling ->
+  short-answer classifier (+ greedy full-answer tokens)
+
+Parameter names are the reference checkpoint's (``text_vocab_embedding``,
+``scene_graph_encoder``, ``question_encoder``, ``program_decoder``,
+``full_answer_decoder``, ``gat_seq``, ``graph_global_attention_pooling``,
+``logit_fc.{1,4}``), so ``load_state_dict`` takes a reference checkpoint and
+``models/convert.py`` maps the JAX package's variables onto it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from graphvqa_tpu_torch.config import ModelConfig
+from graphvqa_tpu_torch.core.device import DeviceLike, resolve_device
+from graphvqa_tpu_torch.core.graph import QABatch
+from graphvqa_tpu_torch.nn.decoders import FullAnswerDecoder, ProgramDecoder
+from graphvqa_tpu_torch.nn.embedding import PaddedEmbed
+from graphvqa_tpu_torch.nn.encoders import QuestionEncoder, SceneGraphEncoder
+from graphvqa_tpu_torch.nn.gnn import GATLayer, GATSeq
+from graphvqa_tpu_torch.nn.pooling import ConditionalGlobalAttention
+from graphvqa_tpu_torch.nn.transformer import TorchLinear
+
+
+@dataclasses.dataclass
+class ModelOutput:
+    short_answer_logits: torch.Tensor                 # [B, num_answers]
+    instr_vectors: torch.Tensor                       # [M, B, D]
+    program_tokens: Optional[torch.Tensor] = None     # [B*M, T]
+    full_answer_tokens: Optional[torch.Tensor] = None  # [B, T]
+    node_attention: Optional[torch.Tensor] = None     # [N] pooling gate
+
+
+class PipelineModel(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.engine.kind != "gat":
+            raise NotImplementedError(
+                f"engine {cfg.engine.kind!r}: this port has the gat engine")
+        if cfg.use_execution_engine:
+            raise NotImplementedError("the execution engine is not ported yet")
+        self.cfg = cfg
+        dt = getattr(torch, cfg.dtype)
+        t, e = cfg.transformer, cfg.engine
+        Et, Es, D = cfg.text.emb_dim, cfg.scene.emb_dim, t.hidden_dim
+        self.text_vocab_embedding = PaddedEmbed(
+            cfg.text.vocab_size, Et, cfg.text.pad_idx)
+        self.scene_graph_encoder = SceneGraphEncoder(
+            cfg.scene.vocab_size, Es, cfg.scene.pad_idx, dt)
+        self.question_encoder = QuestionEncoder(
+            Et, D, t.num_heads, t.ffn_dim, t.num_layers, dt)
+        self.program_decoder = ProgramDecoder(
+            Et, cfg.text.vocab_size, cfg.max_execution_steps, D, t.num_heads,
+            t.ffn_dim, t.num_layers, cfg.text.sos_idx, cfg.text.pad_idx,
+            cfg.program_decode_len, dt)
+        if cfg.use_full_answer:
+            # the JAX model fixes this decoder's dropout at 0.1, inert in eval
+            self.full_answer_decoder = FullAnswerDecoder(
+                Et, cfg.text.vocab_size, D, t.num_heads, t.ffn_dim,
+                t.num_layers, cfg.text.sos_idx, cfg.text.pad_idx,
+                cfg.full_answer_decode_len, dt)
+        self.gat_seq = GATSeq(Es, D, e.num_rounds, e.heads, e.negative_slope,
+                              dt)
+        self.graph_global_attention_pooling = ConditionalGlobalAttention(
+            Es, D, dt)
+        # Sequential(Dropout, Linear, ELU, Dropout, Linear), reference layout
+        self.logit_fc = nn.Sequential(
+            nn.Dropout(cfg.classifier_dropout),
+            TorchLinear(3 * D, cfg.classifier_hidden, dtype=dt), nn.ELU(),
+            nn.Dropout(cfg.classifier_dropout),
+            TorchLinear(cfg.classifier_hidden, cfg.num_answers, dtype=dt))
+
+    @torch.no_grad()
+    def sample(self, batch: QABatch) -> ModelOutput:
+        """Greedy-decode forward (the eval path)."""
+        graph = batch.graphs
+        x_enc, edge_enc = self.scene_graph_encoder(graph)
+        memory = self.question_encoder(batch.questions,
+                                       self.text_vocab_embedding)
+        program_tokens, instr = self.program_decoder.sample(
+            memory, self.text_vocab_embedding)
+        x_exec = self.gat_seq(graph, x_enc, edge_enc, instr)
+        q_feat = memory[:, 0, :]          # <start>-position encoding
+        graph_feat, gate = self.graph_global_attention_pooling(
+            graph, x_exec, q_feat)
+        fused = torch.cat([graph_feat, q_feat, graph_feat * q_feat], dim=-1)
+        logits = self.logit_fc(fused)
+        fa_tokens = None
+        if self.cfg.use_full_answer:
+            fa_tokens = self.full_answer_decoder.sample(
+                memory, self.text_vocab_embedding)
+        return ModelOutput(short_answer_logits=logits, instr_vectors=instr,
+                           program_tokens=program_tokens,
+                           full_answer_tokens=fa_tokens,
+                           node_attention=gate[:, 0])
+
+
+def _uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
+    t.uniform_(-bound, bound, generator=gen)
+
+
+def init_params(model: PipelineModel, generator: torch.Generator) -> None:
+    """Deterministic random weights from ``generator`` (a CPU generator gives
+    the same weights whatever device the model is later moved to): torch's
+    Linear scheme U(+-1/sqrt(fan_in)) for linear layers, N(0, 1) for the
+    embeddings, glorot-uniform for the GAT projections and attention vectors,
+    ones and zeros for the norms. BatchNorm running stats keep 0 / 1."""
+    gat_lins = {id(lin) for g in model.modules() if isinstance(g, GATLayer)
+                for lin in (g.lin_l, g.lin_e)}
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, GATLayer):
+                for lin in (module.lin_l, module.lin_e):
+                    fan_out, fan_in = lin.weight.shape
+                    _uniform_(lin.weight, math.sqrt(6.0 / (fan_in + fan_out)),
+                              generator)
+                for att in (module.att_l, module.att_r, module.att_e):
+                    _, H, C = att.shape
+                    _uniform_(att, math.sqrt(6.0 / (H + C)), generator)
+                module.bias.zero_()
+            elif isinstance(module, nn.Linear) and id(module) not in gat_lins:
+                bound = 1.0 / math.sqrt(module.in_features)
+                _uniform_(module.weight, bound, generator)
+                if module.bias is not None:
+                    _uniform_(module.bias, bound, generator)
+            elif isinstance(module, (PaddedEmbed, nn.Embedding)):
+                module.weight.normal_(0.0, 1.0, generator=generator)
+        for name, p in model.named_parameters():
+            if name.endswith("in_proj_weight"):
+                _uniform_(p, 1.0 / math.sqrt(p.shape[1]), generator)
+            elif name.endswith("in_proj_bias"):
+                _uniform_(p, 1.0 / math.sqrt(p.shape[0] // 3), generator)
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None, seed: int = 0
+                ) -> PipelineModel:
+    """PipelineModel with random weights from a seeded CPU generator, in
+    eval mode on ``device`` (None means the GPU; raises without one)."""
+    dev = resolve_device(device)
+    model = PipelineModel(cfg)
+    init_params(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
