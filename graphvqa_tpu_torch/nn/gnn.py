@@ -106,7 +106,9 @@ class GATLayer(nn.Module):
         wa_r = (w3 * self.att_r).sum(-1)
         w_aug = torch.cat([w[:x_dim], wa_l[:x_dim], wa_r[:x_dim]], dim=1)
         proj = matmul_f32(x, w_aug, dt)                          # [N, H*C+2H]
-        xw = proj[:, :H * C].reshape(N, H, C).to(dt)
+        # a copy in every dtype: in float32 .to(dt) would keep the strided
+        # view into proj, and the kernel takes contiguous tensors only
+        xw = proj[:, :H * C].reshape(N, H, C).to(dt).contiguous()
         alpha_l = proj[:, H * C:H * C + H]
         alpha_r = proj[:, H * C + H:]
         ins_value = matmul_f32(ins, w[x_dim:], dt).reshape(B, H, C)

@@ -10,7 +10,12 @@ attention row sums.
 
 On a CUDA tensor the wrapper launches ``csrc/gat_round.cu`` (built with nvcc
 for sm_90a at first use, bound with ctypes) or raises; on a CPU tensor it
-runs :func:`gat_round_reference`, the same math in index ops.
+runs :func:`gat_round_reference`, the same math in index ops. The kernel
+takes any 2-byte aligned ``xw`` and ``out``: it copies a graph's rows with
+one bulk copy where they are 16-byte aligned and in smaller pieces where
+not. Its blocks take graphs from a counter, a 4-byte tensor that the
+wrapper allocates per call and the library zeroes on the stream before each
+launch.
 
 The wrapper takes each graph's edges as the dense packing lays them out
 (``core/packing.py:pack_graphs_dense``): the real edges first, sorted by
@@ -49,14 +54,18 @@ class KernelLibrary:
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gat_round_launch.argtypes = (
-            [ci] + [vp] * 9 + [ci] * 5 + [ctypes.c_float, ci, vp])
+            [ci] + [vp] * 10 + [ci] * 5 + [ctypes.c_float, ci, vp])
         lib.gat_round_launch.restype = ci
-        lib.gat_round_smem_bytes.argtypes = [ci, ci, ci]
+        lib.gat_round_smem_bytes.argtypes = [ci] * 5
         lib.gat_round_smem_bytes.restype = ctypes.c_size_t
         self.lib = lib
 
 
 _library: Optional[KernelLibrary] = None
+# per device index: the shared memory a block may opt into; per (npg, epg,
+# H, C, dtype): the least the kernel needs. Both fixed for a process.
+_smem_limit: dict = {}
+_smem_need: dict = {}
 
 
 def _nvcc() -> str:
@@ -202,23 +211,37 @@ def gat_round(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value=None,
     _check("alpha_e", alpha_e, (B, epg, H), (torch.float32,), dev)
     if ins_value is not None:
         _check("ins_value", ins_value, (B, H, C), (xw.dtype,), dev)
-    lib = load_library()
-    smem = lib.lib.gat_round_smem_bytes(npg, epg, H)
-    limit = getattr(torch.cuda.get_device_properties(dev),
-                    "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise ValueError(f"npg={npg}, epg={epg}, H={H} needs {smem} B of "
-                         f"shared memory per graph; the card allows {limit}")
-    out = torch.empty(N, C, dtype=xw.dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.lib.gat_round_launch(
-            _DTYPES[xw.dtype], dl.data_ptr(), sl.data_ptr(), mask.data_ptr(),
+    lib = _library or load_library()
+    code = _DTYPES[xw.dtype]
+    need = _smem_need.get((npg, epg, H, C, code))
+    if need is None:
+        need = _smem_need[(npg, epg, H, C, code)] = (
+            lib.lib.gat_round_smem_bytes(npg, epg, H, C, code))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    limit = _smem_limit.get(index)
+    if limit is None:
+        limit = _smem_limit[index] = getattr(
+            torch.cuda.get_device_properties(index),
+            "shared_memory_per_block_optin", 232448)
+    if need > limit:
+        raise ValueError(f"npg={npg}, epg={epg}, H={H}, C={C} needs {need} B "
+                         f"of shared memory per block; the card allows "
+                         f"{limit}")
+    out = torch.empty((N, C), dtype=xw.dtype, device=dev)
+    # the kernel's graph counter, which the library zeroes on the stream
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    args = (code, dl.data_ptr(), sl.data_ptr(), mask.data_ptr(),
             alpha_l.data_ptr(), alpha_r.data_ptr(), alpha_e.data_ptr(),
-            xw.data_ptr(),
-            None if ins_value is None else ins_value.data_ptr(),
-            out.data_ptr(), B, npg, epg, H, C, float(negative_slope),
-            int(shift == "graph"), stream)
+            xw.data_ptr(), None if ins_value is None else ins_value.data_ptr(),
+            out.data_ptr(), counter.data_ptr(), B, npg, epg, H, C,
+            float(negative_slope), int(shift == "graph"))
+    stream = torch.cuda.current_stream(index).cuda_stream
+    # the library launches on the current device: switch only when needed
+    if torch.cuda.current_device() == index:
+        err = lib.lib.gat_round_launch(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = lib.lib.gat_round_launch(*args, stream)
     if err != 0:
         raise RuntimeError(f"gat_round kernel launch failed: CUDA error {err}")
     gat_round.launches += 1

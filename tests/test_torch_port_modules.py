@@ -18,11 +18,13 @@ from graphvqa_tpu.models import PipelineModel as JaxPipelineModel
 from graphvqa_tpu.nn.embedding import PaddedEmbed as JaxPaddedEmbed
 from graphvqa_tpu.nn.norm import MaskedBatchNorm as JaxMaskedBatchNorm
 from graphvqa_tpu.nn.transformer import causal_mask as jax_causal_mask
+import graphvqa_tpu_torch.nn.gnn as pgnn
 import graphvqa_tpu_torch.ops.dense as pdense
 from graphvqa_tpu_torch.core import packing
 from graphvqa_tpu_torch.nn.embedding import PaddedEmbed
 from graphvqa_tpu_torch.nn.norm import MaskedBatchNorm
 from graphvqa_tpu_torch.nn.transformer import causal_mask
+from tests.torch_port_fixtures import tiny_gat_seq
 from tests.torch_port_helpers import (
     jax_variables, port_graph, port_model, random_qa_batch, tiny_model_config)
 
@@ -152,6 +154,38 @@ def test_gat_seq_with_running_stats(setup, monkeypatch):
 
 def test_gat_seq_dst_shift(setup, monkeypatch):
     _gat_seq_case(setup, "dst", monkeypatch)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gat_layer_hands_the_kernel_contiguous_tensors(dtype, monkeypatch):
+    """Every tensor GATLayer passes to gat_round is contiguous and of the
+    wrapper's documented dtype: the kernel on the card raises otherwise,
+    while the plain version on the CPU would accept views."""
+    calls = []
+
+    def spy(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value, **kw):
+        named = dict(dl=dl, sl=sl, mask=mask, alpha_l=alpha_l,
+                     alpha_r=alpha_r, alpha_e=alpha_e, xw=xw,
+                     ins_value=ins_value)
+        want = dict(dl=(torch.int32,), sl=(torch.int32,),
+                    mask=(torch.float32,), alpha_l=(torch.float32,),
+                    alpha_r=(torch.float32,),
+                    alpha_e=(torch.float32, dtype),   # the wrapper casts it
+                    xw=(dtype,), ins_value=(dtype,))
+        for name, t in named.items():
+            assert t.is_contiguous(), f"{name} is not contiguous"
+            assert t.dtype in want[name], f"{name} has dtype {t.dtype}"
+        calls.append(xw.shape)
+        return real_gat_round(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
+                                ins_value, **kw)
+
+    real_gat_round = pgnn.gat_round
+    monkeypatch.setattr(pgnn, "gat_round", spy)
+    seq, g, x, e, ins = tiny_gat_seq(dtype)
+    with torch.no_grad():
+        out = seq(g, x, e, ins)
+    assert len(calls) == seq.num_rounds
+    assert torch.isfinite(out.float()).all()
 
 
 def test_conditional_pooling(setup):
