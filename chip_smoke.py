@@ -4,20 +4,32 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
-  1. build    nvcc builds csrc/gat_round.cu for sm_90a (first use)
+  1. build    nvcc builds csrc/gat_round.cu and csrc/gat_round_backward.cu
+              for sm_90a (first use, one nvcc per source, in parallel)
   2. kernel   the GAT-round kernel against its plain PyTorch version at the
               main path's shapes (B=512, npg=64, epg=256, H=4, C=300) on
               GQA-shaped random graphs: both softmax shifts, with and without
               the instruction share, f32 and bf16; max error; the kernel's
               device time (torch.profiler, median, cold L2) beside the
               least-bytes bound, the wrapper's host time per call, and the
-              plain version's time (CUDA events, median)
-  3. parity   the full-width gat_config() model (random seeded weights,
+              plain version's time (CUDA events, median); then the training
+              options (dropout scale, attention output) against the twin
+  3. backward the backward kernel against its plain version on the same
+              batch (bf16 and f32, both shifts, with the share, with and
+              without the dropout scale); device time, bound, plain time
+  4. parity   the full-width gat_config() model (random seeded weights,
               random BatchNorm statistics, bf16) on B=8, card against CPU
-  4. serve    make_eval_step on 3 requests of B=512 at full width; the kernel
+  5. serve    make_eval_step on 3 requests of B=512 at full width; the kernel
               must run exactly 5 times per request; ms per step and QA/s
-  5. profile  where one more request's time goes: stage times on the host
+  6. profile  where one more request's time goes: stage times on the host
               clock, the device's busy share and its heaviest kernels
+  7. train    make_train_step at full width on B=512: 1 warm-up and 5
+              counted steps; both kernels must run exactly 5 times per step;
+              ms per step, QA/s, the loss of each step, then one profiled
+              step: device busy share and heaviest kernels
+  8. train-parity  one float32 train step of the full-width model on B=8,
+              card against CPU: loss, every gradient, updated parameters
+              and BatchNorm running statistics
 
 The last two lines are the card's name and power limit (nvidia-smi) and a
 {"kernels": [...]} summary before the final {"ok": true, "device": ...}.
@@ -27,6 +39,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,6 +60,17 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 2.0 ** -8)}
 # (the first runs read 0.0039 on logits of |x| <= 0.68), and every argmax
 # equal unless the CPU's top two logits lie within that limit.
 PARITY_ATOL = 0.02
+# The backward's float32 outputs (d_alpha_l/r/e) against the plain version:
+# the same f32 sums in another order.
+BWD_F32_TOL = (1e-4, 1e-4)
+# One float32 train step, card against CPU (TF32 off): the loss to rtol
+# 1e-5; each gradient within 1e-3 of its tensor's largest |gradient| plus
+# 1e-7 (the same sums in another order through some 30 layers); updated
+# parameters to 1e-6 where the CPU's |gradient| > 1e-5 (far above Adam's
+# eps, where the first step is well conditioned); running statistics to
+# rtol/atol 1e-4.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_ATOL = 1e-5, 1e-3, 1e-6
+DROPOUT = 0.1
 
 
 def fail(msg: str) -> None:
@@ -123,25 +147,31 @@ def cuda_median_ms(fn, reps=20, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def device_median_ms(fn, kernel_name, flush, reps=20):
+def device_median_ms(fn, kernel_name, flush, reps=20, tries=3):
     """Median device duration of the ``kernel_name`` kernels that ``reps``
     calls of ``fn`` launch, from torch.profiler's CUDA events. ``flush`` (a
     tensor larger than the 50 MB L2) is zeroed before each call, so every
-    call starts from a cold L2; the flush kernels are not counted. None when
-    the profiler recorded no such kernel."""
+    call starts from a cold L2; the flush kernels are not counted. A window
+    in which the profiler recorded none of them (it happens now and then)
+    is profiled again, up to ``tries`` windows; None when none recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == DeviceType.CUDA and kernel_name in ev.name]
-    return statistics.median(us) / 1e3 if us else None
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == DeviceType.CUDA and kernel_name in ev.name]
+        if us:
+            return statistics.median(us) / 1e3
+        log(f"[timing] profiler window {attempt + 1} recorded no "
+            f"{kernel_name} events; profiling again")
+    return None
 
 
 def host_us_per_call(fn, calls=200):
@@ -258,6 +288,124 @@ def phase_kernel(dev):
                     f" ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     log(f"[kernel] real edges {real_edges}, real nodes {real_nodes} "
         f"of {B * EPG} / {B * NPG} slots")
+    keep = keep_scale(inp, seed=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        xw, ins = xw32.to(dtype), ins32.to(dtype)
+        out, alpha = gat_round(dl, sl, mask, al, ar, ae, xw, ins, npg=NPG,
+                               epg=EPG, keep_scale=keep, return_alpha=True)
+        want, want_alpha = gat_round_reference(
+            dl, sl, mask, al, ar, ae, xw.float(), ins.float(), npg=NPG,
+            epg=EPG, keep_scale=keep, return_alpha=True)
+        torch.cuda.synchronize()
+        atol, rtol = TOL[name]
+        errs = []
+        for got, ref in ((out, want), (alpha, want_alpha)):
+            diff = (got.float() - ref).abs()
+            errs.append(float(diff.max()))
+            if (not torch.isfinite(got).all()
+                    or bool((diff > atol + rtol * ref.abs()).any())):
+                fail(f"gat_round {name} with dropout scale and attention: "
+                     f"max abs err {errs[-1]:.3e}")
+        log(f"[kernel] {name:8s} dropout scale + attention output: max abs "
+            f"err out {errs[0]:.3e}, attention {errs[1]:.3e}")
+        results[(name, "train")] = dict(max_abs_err=max(errs))
+    return results
+
+
+def keep_scale(inp, seed):
+    """An attention dropout scale [B, EPG, H] at the model's rate."""
+    import torch
+    gen = torch.Generator(device=inp["dl"].device).manual_seed(seed)
+    keep = torch.rand(B, EPG, H, generator=gen, device=inp["dl"].device)
+    return (keep >= DROPOUT).float() / (1.0 - DROPOUT)
+
+
+def backward_least_bytes(inp, elem, with_keep):
+    """The fewest bytes one GAT-round backward must move on this batch:
+    the forward's inputs that the gradients depend on read once (indices and
+    mask in full, the xw and alpha_l rows of distinct real sources, the
+    alpha_r rows and upstream-gradient rows of distinct real destinations,
+    the alpha_e and dropout-scale rows of real edges, ins in full), and
+    every gradient written once in full (d_xw, d_alpha_l/r, d_alpha_e,
+    d_ins)."""
+    import torch
+    dl, sl, mask = inp["dl"].long(), inp["sl"].long(), inp["mask"]
+    real = (mask > 0) & (dl >= 0) & (dl < NPG) & (sl >= 0) & (sl < NPG)
+    base = torch.arange(B, device=dl.device)[:, None] * NPG
+    n_src = int(torch.unique((sl + base)[real]).numel())
+    n_dst = int(torch.unique((dl + base)[real]).numel())
+    n_edges = int(real.sum())
+    f32 = 4
+    reads = (3 * B * EPG * f32 + n_src * H * C * elem + n_src * H * f32
+             + n_dst * H * f32 + n_dst * C * elem
+             + n_edges * H * f32 * (2 if with_keep else 1) + B * H * C * elem)
+    writes = (B * NPG * H * C * elem + 2 * B * NPG * H * f32
+              + B * EPG * H * f32 + B * H * C * elem)
+    return reads + writes, n_edges, n_dst
+
+
+def phase_backward(dev):
+    import torch
+    from graphvqa_tpu_torch.ops.gat_round import (
+        gat_round_backward, gat_round_backward_reference)
+    inp = kernel_inputs(dev)
+    args = tuple(inp[k] for k in ("dl", "sl", "mask", "al", "ar", "ae"))
+    keep = keep_scale(inp, seed=2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    grad32 = torch.randn(B * NPG, C, generator=gen, device=dev)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    names = ("d_xw", "d_alpha_l", "d_alpha_r", "d_alpha_e", "d_ins")
+    results = {}
+    cases = [("bfloat16", "graph", True), ("bfloat16", "graph", False),
+             ("bfloat16", "dst", True), ("float32", "graph", True),
+             ("float32", "dst", False)]
+    for name, shift, with_keep in cases:
+        dtype = getattr(torch, name)
+        xw, ins, grad = (inp["xw32"].to(dtype), inp["ins32"].to(dtype),
+                         grad32.to(dtype))
+        k = keep if with_keep else None
+        call_args = (grad,) + args + (xw, ins, k)
+        kw = dict(npg=NPG, epg=EPG, shift=shift)
+        got = gat_round_backward(*call_args, **kw)
+        want = gat_round_backward_reference(
+            grad.float(), *args, xw.float(), ins.float(), k, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for out_name, g, w in zip(names, got, want):
+            atol, rtol = (TOL[name] if out_name in ("d_xw", "d_ins")
+                          else BWD_F32_TOL)
+            diff = (g.float() - w.float()).abs()
+            err = max(err, float(diff.max()))
+            if (not torch.isfinite(g).all()
+                    or bool((diff > atol + rtol * w.float().abs()).any())):
+                fail(f"gat_round_backward {name} shift={shift} keep="
+                     f"{with_keep}: {out_name} max abs err "
+                     f"{float(diff.max()):.3e} beyond atol {atol} rtol {rtol}")
+        again = gat_round_backward(*call_args, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"gat_round_backward {name} shift={shift}: two runs differ")
+        call = lambda: gat_round_backward(*call_args, **kw)  # noqa: E731
+        k_ms = device_median_ms(call, "gat_round_backward_kernel", flush)
+        if k_ms is None:
+            fail("torch.profiler recorded no gat_round_backward_kernel time")
+        p_ms = cuda_median_ms(
+            lambda: gat_round_backward_reference(*call_args, **kw),
+            reps=5, inner=2, warmup=1)
+        nbytes, n_edges, n_dst = backward_least_bytes(inp, dtype.itemsize,
+                                                      with_keep)
+        flops = 4 * H * C * n_edges + 4 * H * C * n_dst + 24 * H * n_edges
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        results[(name, shift, with_keep)] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"[backward] {name:8s} shift={shift:5s} keep={with_keep!s:5s} "
+            f"max_abs_err={err:.3e} deterministic device={k_ms * 1e3:.2f}us "
+            f"cold-L2 ({100 * bound / k_ms:.1f}% of bound); plain="
+            f"{p_ms * 1e3:.1f}us bound={bound * 1e3:.2f}us "
+            f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
     return results
 
 
@@ -419,6 +567,150 @@ def phase_profile(model, step, request):
         log(f"[profile]   {t / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
 
 
+def phase_train(cfg, dev, model):
+    """The full-width train step on B=512: 1 warm-up and 5 counted steps
+    (counts set to 0 just before them and read just after), then one
+    profiled step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.train.loop import make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    tc = cfg.train
+    state = create_train_state(model, lr=tc.lr, lr_drop=tc.lr_drop,
+                               lr_gamma=tc.lr_gamma,
+                               weight_decay=tc.weight_decay)
+    step = make_train_step(model, cfg)
+    batch = qa_batch(cfg, B, seed=200).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    step(state, batch, gen)                             # warm-up step
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    gat_round.launches = gat_round_backward.launches = 0
+    times, losses = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["total"]))
+    fwd, bwd = gat_round.launches, gat_round_backward.launches
+    rounds = cfg.model.engine.num_rounds
+    if (fwd, bwd) != (rounds * len(times), rounds * len(times)):
+        fail(f"train path launched gat_round {fwd} and gat_round_backward "
+             f"{bwd} times in {len(times)} steps, expected {rounds} each "
+             f"per step")
+    if not all(map(math.isfinite, losses)):
+        fail(f"non-finite training loss: {losses}")
+    ms = [t * 1e3 for t in times]
+    log(f"[train] {len(times)} steps of B={B} at full width (dropout "
+        f"{cfg.model.transformer.dropout}/{cfg.model.engine.dropout}/"
+        f"{cfg.model.classifier_dropout}, lr {tc.lr}): ms/step "
+        f"{', '.join(f'{v:.2f}' for v in ms)} (mean {statistics.mean(ms):.2f}"
+        f", warm-up {warm * 1e3:.0f}), QA/s {B / statistics.mean(times):.1f}"
+        f"; loss per step {', '.join(f'{v:.5f}' for v in losses)}; launches "
+        f"per step gat_round {fwd // len(times)}, gat_round_backward "
+        f"{bwd // len(times)}; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [ev for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA]
+    if not kernels:
+        log("[train] the profiler recorded no device time: not measured")
+        return fwd, bwd
+    busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
+    by_name = {}
+    for ev in kernels:
+        n, t = by_name.get(ev.name, (0, 0.0))
+        by_name[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
+    log(f"[train] one profiled step: wall {wall_us / 1e3:.2f} ms, "
+        f"{len(kernels)} device kernels, device busy {busy_us / 1e3:.2f} ms "
+        f"= {100 * busy_us / wall_us:.1f}% of wall")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
+        log(f"[train]   {t / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
+    return fwd, bwd
+
+
+def phase_train_parity(dev):
+    """One float32 train step of the full-width model (dropout 0) on B=8,
+    card against CPU, from the same weights."""
+    import dataclasses
+    import torch
+    from graphvqa_tpu_torch.config import gat_config
+    from graphvqa_tpu_torch.train.loop import make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    base = gat_config()
+    mc = base.model
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        mc, dtype="float32", classifier_dropout=0.0,
+        transformer=dataclasses.replace(mc.transformer, dropout=0.0),
+        engine=dataclasses.replace(mc.engine, dropout=0.0)))
+    batch = qa_batch(cfg, 8, seed=21)
+    runs = {}
+    for device in ("cpu", dev):
+        model = full_model(cfg, device)
+        state = create_train_state(model, lr=cfg.train.lr)
+        t0 = time.perf_counter()
+        _, m = make_train_step(model, cfg)(
+            state, batch.to(device),
+            torch.Generator(device=device).manual_seed(0))
+        loss = float(m["total"])
+        runs[str(device)] = dict(
+            loss=loss, seconds=time.perf_counter() - t0,
+            grads={n: (p.grad if p.grad is not None
+                       else torch.zeros_like(p)).cpu()
+                   for n, p in model.named_parameters()},
+            params={n: p.detach().cpu() for n, p in model.named_parameters()},
+            stats={n: b.cpu() for n, b in model.named_buffers()
+                   if n.endswith(("running_mean", "running_var"))})
+        del model, state
+    cpu, gpu = runs["cpu"], runs[str(dev)]
+    loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_err = near_zero_err = param_err = stat_err = 0.0
+    for n, gc in cpu["grads"].items():
+        scale = float(gc.abs().max())
+        err = float((gpu["grads"][n] - gc).abs().max())
+        if scale > 1e-5:
+            grad_err = max(grad_err, err / scale)
+        else:       # a gradient that is 0 in exact arithmetic: round-off
+            near_zero_err = max(near_zero_err, err)
+        if err > TRAIN_GRAD_TOL * scale + 1e-7:
+            fail(f"train step card vs CPU: gradient of {n} differs by "
+                 f"{err:.3e} (scale {scale:.3e})")
+        conditioned = gc.abs() > 1e-5
+        perr = float((gpu["params"][n] - cpu["params"][n])[conditioned]
+                     .abs().max()) if bool(conditioned.any()) else 0.0
+        param_err = max(param_err, perr)
+        if perr > TRAIN_PARAM_ATOL:
+            fail(f"train step card vs CPU: updated {n} differs by {perr:.3e}")
+    for n, sc in cpu["stats"].items():
+        err = float((gpu["stats"][n] - sc).abs().max())
+        stat_err = max(stat_err, err)
+        if not torch.allclose(gpu["stats"][n], sc, rtol=1e-4, atol=1e-4):
+            fail(f"train step card vs CPU: running statistic {n} differs "
+                 f"by {err:.3e}")
+    if not math.isfinite(gpu["loss"]) or loss_err > TRAIN_LOSS_RTOL:
+        fail(f"train step card vs CPU: loss {gpu['loss']} vs {cpu['loss']}")
+    log(f"[train-parity] f32 B=8 full width, one step: loss card "
+        f"{gpu['loss']:.7f} cpu {cpu['loss']:.7f} (rel {loss_err:.2e}, "
+        f"limit {TRAIN_LOSS_RTOL}); worst gradient diff {grad_err:.2e} of "
+        f"its tensor's scale where that exceeds 1e-5 (limit "
+        f"{TRAIN_GRAD_TOL}), {near_zero_err:.2e} absolute in the others "
+        f"(limit 1e-7 beyond the relative one); updated params "
+        f"{param_err:.2e} where |grad| > 1e-5 (limit {TRAIN_PARAM_ATOL}); "
+        f"running stats {stat_err:.2e}; card {gpu['seconds']:.2f}s cpu "
+        f"{cpu['seconds']:.2f}s")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -446,29 +738,46 @@ def main() -> None:
         f"device {torch.cuda.get_device_name(0)}")
 
     lib = gr.load_library()
-    log(f"[build] nvcc {lib.build_seconds:.1f}s -> {lib.path}")
+    log(f"[build] nvcc {lib.build_seconds:.1f}s (in parallel) -> "
+        f"{', '.join(str(p) for p in lib.paths.values())}")
     for line in lib.log.strip().splitlines():
         if any(w in line for w in ("registers", "spill", "error", "smem")):
             log(f"[build] {line.strip()}")
     kernel = phase_kernel(dev)
+    backward = phase_backward(dev)
     cfg = gat_config()
     model = full_model(cfg, dev)
     log(f"[model] gat_config() params "
         f"{sum(p.numel() for p in model.parameters())} dtype {cfg.model.dtype}")
     phase_parity(cfg, dev, model)
-    launches, step, request = phase_serve(cfg, dev, model)
+    serve_launches, step, request = phase_serve(cfg, dev, model)
     phase_profile(model, step, request)
+    train_fwd, train_bwd = phase_train(cfg, dev, model)
+    del model, step, request
+    phase_train_parity(dev)
 
     card = card_line()
-    main_cfg = kernel[("bfloat16", "graph", True)]
+    fwd = kernel[("bfloat16", "graph", True)]
+    bwd = backward[("bfloat16", "graph", True)]
     summary = {"kernels": [{
         "name": "gat_round", "route": "cuda",
         "source": "graphvqa_tpu_torch/csrc/gat_round.cu",
         "replaces": "graphvqa_tpu/ops/pallas/fused_dense_gat.py:44",
-        "launches": launches,
+        "launches": train_fwd,
+        "launches_by_path": {"serve": serve_launches, "train": train_fwd},
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
-        "ms": main_cfg["ms"], "plain_ms": main_cfg["plain_ms"],
-        "bound_ms": main_cfg["bound_ms"], "bound_by": main_cfg["bound_by"],
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": None}, {
+        "name": "gat_round_backward", "route": "cuda",
+        "source": "graphvqa_tpu_torch/csrc/gat_round_backward.cu",
+        "replaces": "none: XLA autodiff of "
+                    "graphvqa_tpu/ops/dense.py:350 dense_gat_aggregate",
+        "launches": train_bwd,
+        "launches_by_path": {"train": train_bwd},
+        "max_abs_err": max(r["max_abs_err"] for r in backward.values()),
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": None}]}
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -5,15 +5,21 @@ module layout and names (``config``, ``core``, ``ops``, ``nn``, ``models``,
 ``train``) so every module's counterpart is easy to find. It imports torch and
 numpy only, never jax, flax or graphvqa_tpu.
 
-This slice ports the greedy-eval path of ``config.gat_config()``:
+Ported so far: the greedy-eval path and the train step of
+``config.gat_config()``:
 
   core/    batch containers, dense packing, device selection
   ops/     dense per-graph graph ops (index ops) and the fused GAT round,
-           a hand-written CUDA kernel (csrc/gat_round.cu) with its plain twin
-  nn/      embeddings, transformers, masked BatchNorm, GAT engine, encoders,
-           KV-cached greedy decoders, conditional pooling
-  models/  PipelineModel (kind="gat", sample=True) and weight conversion
-  train/   program-match metrics and make_eval_step, the serving entry point
+           hand-written CUDA kernels for its forward (csrc/gat_round.cu) and
+           backward (csrc/gat_round_backward.cu), each with its plain twin
+  nn/      embeddings, transformers with dropout, masked BatchNorm, GAT
+           engine, encoders, teacher-forced and KV-cached greedy decoders,
+           conditional pooling
+  models/  PipelineModel (kind="gat": forward and sample) and weight
+           conversion
+  train/   losses, metrics, Adam with StepLR, checkpoints, meters,
+           make_train_step and train_one_epoch, and make_eval_step, the
+           serving entry point
 
 Entry points take ``device=None`` and mean the GPU by it; without one they
 raise rather than fall back to the CPU.

@@ -1,8 +1,9 @@
 """Config tree of the port: its own copy of ``graphvqa_tpu/config.py``.
 
-Only what the greedy-eval slice reads is kept: the model tree and the static
-batch shape. Field names, defaults and ``gat_config()`` match the JAX
-package, so a config made for one side reads the same on the other.
+Kept: the model tree, the static batch shape and the trainer's settings
+(the JAX package's mesh layout is not ported yet). Field names, defaults and
+``gat_config()`` match the JAX package, so a config made for one side reads
+the same on the other.
 """
 from __future__ import annotations
 
@@ -88,9 +89,29 @@ class BatchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The trainer's settings (Adam with StepLR stepped per epoch)."""
+    lr: float = 1e-4
+    lr_drop: int = 90               # StepLR step size, in epochs
+    lr_gamma: float = 0.1
+    epochs: int = 200
+    batch_size: int = 200
+    weight_decay: float = 0.0
+    seed: int = 1234
+    print_freq: int = 100
+    validate_every: int = 5
+    output_dir: str = "./outputdir"
+    # loss composition: the GAT configuration trains short-answer CE only
+    use_program_loss: bool = False
+    use_full_answer_loss: bool = False
+    use_bitmap_loss: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     batch: BatchConfig = dataclasses.field(default_factory=BatchConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def gat_config() -> Config:

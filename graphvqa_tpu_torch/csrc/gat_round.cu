@@ -65,6 +65,13 @@
 //    where C and the pointers allow (one channel otherwise). The rows
 //    past the last real destination are zeroed with 16-byte stores, without
 //    walking any edge.
+// Training extras, both null on the eval path (checked once per graph, never
+// inside the aggregation): `keep` [B, epg, H] f32, the per-edge attention
+// dropout scale (0 or 1/(1-rate)) that multiplies exp() after the
+// denominator, as ops/dense.py:432-436 does; `alpha` [B, epg, H] in xw's
+// dtype, the dropped attention exp / (den + 1e-16) (return_alpha's meaning,
+// ops/dense.py:499-503), 0 on padded edges. The backward is
+// csrc/gat_round_backward.cu.
 // Precondition: within each graph the real edges come first, sorted by
 // destination, and the padded ones follow. The dense packing
 // (core/packing.py:pack_graphs_dense) lays edges out so; a device assert
@@ -344,9 +351,11 @@ struct Params {
   const float* al;
   const float* ar;
   const float* ae;
+  const float* keep;   // null: no dropout
   const void* xw;
   const void* ins;
   void* out;
+  void* alpha;         // null: no attention output
   int* next;   // graphs handed out past the first gridDim.x; 0 at launch
   int B, npg, epg, H, C, shift_graph, stage_bytes;
   float slope;
@@ -355,8 +364,11 @@ struct Params {
 // HT: the head count when it is fixed at compile time (the model's 4: one
 // 16-byte load fetches an edge's four weights and the head loop is
 // straight-line code, -17 % device time in bf16 against a run-time H on an
-// NVIDIA H100 80GB HBM3 at 700 W), else 0 and p.H.
-template <typename T, int VEC, int HT>
+// NVIDIA H100 80GB HBM3 at 700 W), else 0 and p.H. TRAIN: whether the
+// dropout scale and the attention output may be given; the eval variants
+// (false) see them as constant nulls, so their checks compile away (with
+// run-time checks the eval configuration read ~1 % slower).
+template <typename T, int VEC, int HT, bool TRAIN>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     gat_round_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -365,6 +377,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
   const T* __restrict__ xw = static_cast<const T*>(p.xw);
   const T* __restrict__ ins = static_cast<const T*>(p.ins);
   T* __restrict__ out = static_cast<T*>(p.out);
+  T* __restrict__ alpha = TRAIN ? static_cast<T*>(p.alpha) : nullptr;
   const Layout L(npg, epg, H, C, sizeof(T));
   auto meta = [&](int m) {
     unsigned char* base = smem + m * L.meta;
@@ -479,6 +492,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
           x = x >= 0.f ? x : p.slope * x;
         }
         w[e * H + h] = x;
+        if (alpha != nullptr && !real)
+          store1(alpha + (b * epg + e) * H + h, 0.f);
       }
     }
     if (p.shift_graph) {
@@ -512,10 +527,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
           den += ex;
         }
         const float r = inv_h / (den + kEps);
+        const float* keep =
+            !TRAIN || p.keep == nullptr ? nullptr : p.keep + b * epg * H;
         for (int e = e0; e < e1; ++e) {
-          const float a = w[e * H + h] * r;
+          float ex = w[e * H + h];
+          if (keep != nullptr) ex *= keep[e * H + h];
+          const float a = ex * r;
           w[e * H + h] = a;
           rs += a;
+          if (alpha != nullptr)
+            store1(alpha + (b * epg + e) * H + h, ex / (den + kEps));
         }
       }
       rowsum[q] = rs;
@@ -602,9 +623,9 @@ DeviceInfo& device_info(int dev) {
   return d;
 }
 
-template <typename T, int VEC, int HT>
+template <typename T, int VEC, int HT, bool TRAIN>
 int launch(Params p, cudaStream_t stream) {
-  auto kernel = gat_round_kernel<T, VEC, HT>;
+  auto kernel = gat_round_kernel<T, VEC, HT, TRAIN>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -648,13 +669,20 @@ int launch(Params p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Three variants per dtype: 4 channels per thread with H=4 fixed (the main
-// path), 4 channels with any H, and one channel with any H (odd C or
+// Three variants per dtype and mode (eval, or training with the dropout
+// scale or the attention output): 4 channels per thread with H=4 fixed (the
+// main path), 4 channels with any H, and one channel with any H (odd C or
 // misaligned pointers, off the main path).
 template <typename T>
 int launch_vec(int vec, const Params& p, cudaStream_t s) {
-  if (vec != 4) return launch<T, 1, 0>(p, s);
-  return p.H == 4 ? launch<T, 4, 4>(p, s) : launch<T, 4, 0>(p, s);
+  if (p.keep != nullptr || p.alpha != nullptr) {
+    if (vec != 4) return launch<T, 1, 0, true>(p, s);
+    return p.H == 4 ? launch<T, 4, 4, true>(p, s)
+                    : launch<T, 4, 0, true>(p, s);
+  }
+  if (vec != 4) return launch<T, 1, 0, false>(p, s);
+  return p.H == 4 ? launch<T, 4, 4, false>(p, s)
+                  : launch<T, 4, 0, false>(p, s);
 }
 
 }  // namespace
@@ -670,15 +698,18 @@ extern "C" size_t gat_round_smem_bytes(int npg, int epg, int H, int C,
 // dtype: 0 = float32, 1 = bfloat16 (xw, ins and out). dl/sl int32 [B, epg]
 // (per graph: real edges first, dst-sorted, padding last),
 // mask f32 [B, epg], al/ar f32 [B*npg, H], ae f32 [B, epg, H], xw [B*npg, H, C],
-// ins [B, H, C] or null, out [B*npg, C], next 4 bytes of scratch (the graph
-// counter, zeroed here on the stream). Launches on the current device.
+// keep f32 [B, epg, H] or null, ins [B, H, C] or null, out [B*npg, C],
+// alpha [B, epg, H] or null, next 4 bytes of scratch (the graph counter,
+// zeroed here on the stream). Launches on the current device.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gat_round_launch(int dtype, const void* dl, const void* sl,
                                 const void* mask, const void* al,
-                                const void* ar, const void* ae, const void* xw,
-                                const void* ins, void* out, void* next, int B,
-                                int npg, int epg, int H, int C, float slope,
-                                int shift_graph, void* stream) {
+                                const void* ar, const void* ae,
+                                const void* keep, const void* xw,
+                                const void* ins, void* out, void* alpha,
+                                void* next, int B, int npg, int epg, int H,
+                                int C, float slope, int shift_graph,
+                                void* stream) {
   if (B <= 0 || npg <= 0 || epg <= 0 || H <= 0 || C <= 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -690,8 +721,8 @@ extern "C" int gat_round_launch(int dtype, const void* dl, const void* sl,
   Params p{static_cast<const int32_t*>(dl), static_cast<const int32_t*>(sl),
            static_cast<const float*>(mask), static_cast<const float*>(al),
            static_cast<const float*>(ar), static_cast<const float*>(ae),
-           xw, ins, out, static_cast<int*>(next), B, npg, epg, H, C,
-           shift_graph, 0, slope};
+           static_cast<const float*>(keep), xw, ins, out, alpha,
+           static_cast<int*>(next), B, npg, epg, H, C, shift_graph, 0, slope};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_vec<float>(vec, p, s)
                     : launch_vec<__nv_bfloat16>(vec, p, s);

@@ -1,9 +1,11 @@
-"""The pipeline model, GAT engine, greedy-sample path (port of
-``graphvqa_tpu/models/pipeline.py`` for ``kind="gat"``, ``sample=True``).
+"""The pipeline model with the GAT engine (port of
+``graphvqa_tpu/models/pipeline.py`` for ``kind="gat"``): ``forward`` is the
+teacher-forced training path (``sample=False``), ``sample`` the greedy-eval
+path.
 
   scene-graph encoder -> question encoder -> program decoder (instruction
-  vectors + greedy program tokens) -> GAT engine -> conditional pooling ->
-  short-answer classifier (+ greedy full-answer tokens)
+  vectors + program logits or greedy tokens) -> GAT engine -> conditional
+  pooling -> short-answer classifier (+ full-answer logits or tokens)
 
 Parameter names are the reference checkpoint's (``text_vocab_embedding``,
 ``scene_graph_encoder``, ``question_encoder``, ``program_decoder``,
@@ -28,16 +30,19 @@ from graphvqa_tpu_torch.nn.embedding import PaddedEmbed
 from graphvqa_tpu_torch.nn.encoders import QuestionEncoder, SceneGraphEncoder
 from graphvqa_tpu_torch.nn.gnn import GATLayer, GATSeq
 from graphvqa_tpu_torch.nn.pooling import ConditionalGlobalAttention
-from graphvqa_tpu_torch.nn.transformer import TorchLinear
+from graphvqa_tpu_torch.nn.transformer import TorchLinear, dropout
 
 
 @dataclasses.dataclass
 class ModelOutput:
     short_answer_logits: torch.Tensor                 # [B, num_answers]
     instr_vectors: torch.Tensor                       # [M, B, D]
+    program_logits: Optional[torch.Tensor] = None     # [B*M, Lp, V]
     program_tokens: Optional[torch.Tensor] = None     # [B*M, T]
+    full_answer_logits: Optional[torch.Tensor] = None  # [B, La, V]
     full_answer_tokens: Optional[torch.Tensor] = None  # [B, T]
     node_attention: Optional[torch.Tensor] = None     # [N] pooling gate
+    edge_attention: Optional[torch.Tensor] = None     # [rounds, E, H]
 
 
 class PipelineModel(nn.Module):
@@ -57,31 +62,84 @@ class PipelineModel(nn.Module):
         self.scene_graph_encoder = SceneGraphEncoder(
             cfg.scene.vocab_size, Es, cfg.scene.pad_idx, dt)
         self.question_encoder = QuestionEncoder(
-            Et, D, t.num_heads, t.ffn_dim, t.num_layers, dt)
+            Et, D, t.num_heads, t.ffn_dim, t.num_layers, dt, t.dropout)
         self.program_decoder = ProgramDecoder(
             Et, cfg.text.vocab_size, cfg.max_execution_steps, D, t.num_heads,
             t.ffn_dim, t.num_layers, cfg.text.sos_idx, cfg.text.pad_idx,
-            cfg.program_decode_len, dt)
+            cfg.program_decode_len, dt, t.dropout)
         if cfg.use_full_answer:
-            # the JAX model fixes this decoder's dropout at 0.1, inert in eval
+            # the JAX model fixes this decoder's dropout at 0.1, whatever
+            # transformer.dropout says
             self.full_answer_decoder = FullAnswerDecoder(
                 Et, cfg.text.vocab_size, D, t.num_heads, t.ffn_dim,
                 t.num_layers, cfg.text.sos_idx, cfg.text.pad_idx,
-                cfg.full_answer_decode_len, dt)
+                cfg.full_answer_decode_len, dt, dropout=0.1)
         self.gat_seq = GATSeq(Es, D, e.num_rounds, e.heads, e.negative_slope,
-                              dt)
+                              dt, e.dropout)
         self.graph_global_attention_pooling = ConditionalGlobalAttention(
             Es, D, dt)
-        # Sequential(Dropout, Linear, ELU, Dropout, Linear), reference layout
+        # Sequential(Dropout, Linear, ELU, Dropout, Linear), reference
+        # layout; _classify runs it with explicit dropout draws
         self.logit_fc = nn.Sequential(
             nn.Dropout(cfg.classifier_dropout),
             TorchLinear(3 * D, cfg.classifier_hidden, dtype=dt), nn.ELU(),
             nn.Dropout(cfg.classifier_dropout),
             TorchLinear(cfg.classifier_hidden, cfg.num_answers, dtype=dt))
 
+    def _classify(self, graph, x_exec, memory, generator=None):
+        """Pooling and the short-answer classifier -> (logits, gate [N, 1])."""
+        q_feat = memory[:, 0, :]          # <start>-position encoding
+        graph_feat, gate = self.graph_global_attention_pooling(
+            graph, x_exec, q_feat)
+        fused = torch.cat([graph_feat, q_feat, graph_feat * q_feat], dim=-1)
+        rate = self.cfg.classifier_dropout
+        h = self.logit_fc[1](dropout(fused, rate, generator))
+        h = dropout(self.logit_fc[2](h), rate, generator)
+        return self.logit_fc[4](h), gate
+
+    def forward(self, batch: QABatch, *, deterministic: bool = True,
+                use_running_average: bool = True,
+                generator: Optional[torch.Generator] = None,
+                return_edge_attention: bool = False,
+                full_answer: bool = True) -> ModelOutput:
+        """Teacher-forced forward (``sample=False`` in the JAX package): the
+        batch carries the input streams (``programs[:, :-1]``,
+        ``full_answers[:, :-1]``). ``deterministic=False`` applies dropout,
+        drawn from ``generator`` (a ``torch.Generator`` on the batch's
+        device); ``use_running_average=False`` normalizes with batch
+        statistics and updates the running ones. ``full_answer=False``
+        skips the full-answer decoder (no loss of the GAT configuration
+        reads it)."""
+        gen = None
+        if not deterministic:
+            if generator is None:
+                raise ValueError("deterministic=False needs a generator")
+            gen = generator
+        graph, emb = batch.graphs, self.text_vocab_embedding
+        x_enc, edge_enc = self.scene_graph_encoder(graph)
+        memory = self.question_encoder(batch.questions, emb, gen)
+        program_logits, instr = self.program_decoder(memory, batch.programs,
+                                                     emb, gen)
+        x_exec = self.gat_seq(graph, x_enc, edge_enc, instr, generator=gen,
+                              use_running_average=use_running_average,
+                              return_alpha=return_edge_attention)
+        edge_attention = None
+        if return_edge_attention:
+            x_exec, edge_attention = x_exec
+        logits, gate = self._classify(graph, x_exec, memory, gen)
+        fa_logits = None
+        if self.cfg.use_full_answer and full_answer:
+            fa_logits = self.full_answer_decoder(memory, batch.full_answers,
+                                                 emb, gen)
+        return ModelOutput(short_answer_logits=logits, instr_vectors=instr,
+                           program_logits=program_logits,
+                           full_answer_logits=fa_logits,
+                           node_attention=gate[:, 0],
+                           edge_attention=edge_attention)
+
     @torch.no_grad()
     def sample(self, batch: QABatch) -> ModelOutput:
-        """Greedy-decode forward (the eval path)."""
+        """Greedy-decode forward (the eval path), deterministic."""
         graph = batch.graphs
         x_enc, edge_enc = self.scene_graph_encoder(graph)
         memory = self.question_encoder(batch.questions,
@@ -89,11 +147,7 @@ class PipelineModel(nn.Module):
         program_tokens, instr = self.program_decoder.sample(
             memory, self.text_vocab_embedding)
         x_exec = self.gat_seq(graph, x_enc, edge_enc, instr)
-        q_feat = memory[:, 0, :]          # <start>-position encoding
-        graph_feat, gate = self.graph_global_attention_pooling(
-            graph, x_exec, q_feat)
-        fused = torch.cat([graph_feat, q_feat, graph_feat * q_feat], dim=-1)
-        logits = self.logit_fc(fused)
+        logits, gate = self._classify(graph, x_exec, memory)
         fa_tokens = None
         if self.cfg.use_full_answer:
             fa_tokens = self.full_answer_decoder.sample(

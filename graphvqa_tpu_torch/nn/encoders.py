@@ -3,7 +3,9 @@
 Scene graph: token embeddings summed over slots, the sign flip of
 dataset-added reverse edges, one MetaLayer round, then the per-graph
 LayerNorm with scalar affine. Question: the shared text embedding, a linear
-projection times sqrt(d), sinusoidal positions, a post-LN encoder stack.
+projection times sqrt(d), sinusoidal positions with dropout, a post-LN
+encoder stack (dropout as ``nn/transformer.py`` places it; ``generator=None``
+is deterministic).
 """
 from __future__ import annotations
 
@@ -56,15 +58,16 @@ class SceneGraphEncoder(nn.Module):
 class QuestionEncoder(nn.Module):
     def __init__(self, emb_dim: int, hidden_dim: int = 512, num_heads: int = 8,
                  ffn_dim: int = 2048, num_layers: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.emb_proj = TorchLinear(emb_dim, hidden_dim, dtype=dtype)
-        self.pos_encoder = PositionalEncoding(hidden_dim)
+        self.pos_encoder = PositionalEncoding(hidden_dim, dropout=dropout)
         self.transformer_encoder = TransformerEncoder(
-            num_layers, hidden_dim, num_heads, ffn_dim, dtype)
+            num_layers, hidden_dim, num_heads, ffn_dim, dtype, dropout)
 
-    def forward(self, tokens, text_embed: PaddedEmbed):
+    def forward(self, tokens, text_embed: PaddedEmbed, generator=None):
         """tokens [B, L] -> memory [B, L, hidden_dim]."""
         x = self.emb_proj(text_embed(tokens)) * math.sqrt(self.hidden_dim)
-        return self.transformer_encoder(self.pos_encoder(x))
+        return self.transformer_encoder(self.pos_encoder(x, generator),
+                                        generator)

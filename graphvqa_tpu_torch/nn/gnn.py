@@ -15,6 +15,11 @@ bf16 rounds:
     through the attention row sums inside the GAT round;
   * the edge-score projection of every round is hoisted into one
     ``alpha_e_all`` product per step (``GATSeq``).
+
+Training (``GATSeq.forward`` with a ``generator``): attention dropout as a
+per-edge scale drawn here and applied inside the GAT round, BatchNorm batch
+statistics between rounds (``use_running_average=False``) and dropout on
+``h`` after each BatchNorm + ReLU, as the JAX package's ``GATSeq`` does.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from torch import nn
 
 from graphvqa_tpu_torch.core.graph import GraphBatch
 from graphvqa_tpu_torch.nn.norm import MaskedBatchNorm
-from graphvqa_tpu_torch.nn.transformer import TorchLinear, matmul_f32
+from graphvqa_tpu_torch.nn.transformer import (
+    TorchLinear, dropout, matmul_f32)
 from graphvqa_tpu_torch.ops import dense
 from graphvqa_tpu_torch.ops.gat_round import gat_round
 
@@ -91,12 +97,14 @@ class GATLayer(nn.Module):
         H, C = self.heads, self.out_channels
         return (self.lin_e.weight.t().reshape(-1, H, C) * self.att_e).sum(-1)
 
-    def forward(self, graph: GraphBatch, x, ins, alpha_e_base, dl, sl, mask):
+    def forward(self, graph: GraphBatch, x, ins, alpha_e_base, dl, sl, mask,
+                keep_scale=None, return_alpha=False):
         """x [N, in_c]; ins [B, ins_dim]; alpha_e_base [E, H] (this round's
         slice of GATSeq's hoisted edge scores); dl / sl / mask [B, epg] the
-        graph's local edge indices and edge mask (the same every round)
-        -> [N, C] float32. The softmax shift is ``GRAPHVQA_SOFTMAX_SHIFT``
-        (ops/dense.py)."""
+        graph's local edge indices and edge mask (the same every round);
+        keep_scale [B, epg, H] the attention dropout scale or None
+        -> [N, C] float32, and with ``return_alpha`` the attention [E, H].
+        The softmax shift is ``GRAPHVQA_SOFTMAX_SHIFT`` (ops/dense.py)."""
         B, npg, epg = dense.dense_shapes(graph)
         H, C, dt = self.heads, self.out_channels, self.compute_dtype
         N, x_dim = graph.nodes_pad, self.in_channels
@@ -123,9 +131,12 @@ class GATLayer(nn.Module):
             dl, sl, mask, alpha_l.contiguous(), alpha_r.contiguous(),
             alpha_e.reshape(B, epg, H), xw, ins_value.to(dt).contiguous(),
             npg=npg, epg=epg, negative_slope=self.negative_slope,
-            shift=dense.SOFTMAX_SHIFT)
-        out = out + self.bias
-        return torch.where(graph.node_mask[:, None], out, 0.0)
+            shift=dense.SOFTMAX_SHIFT, keep_scale=keep_scale,
+            return_alpha=return_alpha)
+        if return_alpha:
+            out, alpha = out
+        out = torch.where(graph.node_mask[:, None], out + self.bias, 0.0)
+        return (out, alpha) if return_alpha else out
 
 
 class GATSeq(nn.Module):
@@ -134,10 +145,11 @@ class GATSeq(nn.Module):
 
     def __init__(self, channels: int, ins_dim: int, num_rounds: int = 5,
                  heads: int = 4, negative_slope: float = 0.2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.heads, self.num_rounds, self.compute_dtype = (
             heads, num_rounds, dtype)
+        self.dropout = dropout
         self.convs = nn.ModuleList(
             GATLayer(channels, channels, ins_dim, channels, heads,
                      negative_slope, dtype) for _ in range(num_rounds))
@@ -145,8 +157,11 @@ class GATSeq(nn.Module):
             MaskedBatchNorm(channels, dtype=dtype)
             for _ in range(num_rounds - 1))
 
-    def forward(self, graph: GraphBatch, x, edge_attr, instr_vectors):
-        """x [N, C], edge_attr [E, C], instr_vectors [R, B, ins_dim]."""
+    def forward(self, graph: GraphBatch, x, edge_attr, instr_vectors,
+                generator=None, use_running_average=True, return_alpha=False):
+        """x [N, C], edge_attr [E, C], instr_vectors [R, B, ins_dim] -> h
+        [N, C], and with ``return_alpha`` the attention of every round
+        [R, E, H]. ``generator`` (None: deterministic) draws the dropout."""
         H, e_c = self.heads, edge_attr.shape[-1]
         # the static edge scores of every round in one [E, e_c] x [e_c, R*H]
         we_att_all = torch.cat([conv.edge_att()[:e_c] for conv in self.convs],
@@ -155,10 +170,24 @@ class GATSeq(nn.Module):
         B, _, epg = dense.dense_shapes(graph)
         dl, sl = dense.dense_local_indices(graph)
         mask = graph.edge_mask.reshape(B, epg).float()
-        h = x
+        h, alphas = x, []
+        rate = self.dropout if generator is not None else 0.0
         for i, conv in enumerate(self.convs):
-            h = conv(graph, h, instr_vectors[i],
-                     alpha_e_all[:, i * H:(i + 1) * H], dl, sl, mask) + h
+            keep = None
+            if rate > 0.0:
+                keep = (torch.rand((B, epg, H), generator=generator,
+                                   device=mask.device) >= rate).float() \
+                    / (1.0 - rate)
+            out = conv(graph, h, instr_vectors[i],
+                       alpha_e_all[:, i * H:(i + 1) * H], dl, sl, mask,
+                       keep_scale=keep, return_alpha=return_alpha)
+            if return_alpha:
+                out, alpha = out
+                alphas.append(alpha)
+            h = out + h
             if i != self.num_rounds - 1:
-                h = torch.relu(self.bns[i](h, mask=graph.node_mask))
-        return h
+                h = torch.relu(self.bns[i](
+                    h, mask=graph.node_mask,
+                    use_running_average=use_running_average))
+                h = dropout(h, rate, generator)
+        return (h, torch.stack(alphas)) if return_alpha else h

@@ -8,9 +8,13 @@ rounds: linear layers compute in ``dtype``; attention scores, softmax and the
 weighted sum run in float32 over ``dtype``-rounded operands; LayerNorm takes
 float32 statistics (E[x^2] - E[x]^2, as flax does) and returns ``dtype``.
 
-This slice is the eval path: no dropout. The KV-cached greedy decode
-(``init_cache`` / ``precompute_cross_kv`` / ``decode_step``) updates its cache
-buffers in place.
+Dropout sits where the JAX package puts it: on the attention weights after
+the softmax, on each sublayer's output before its residual add, inside the
+feed-forward block after the ReLU, and after the positional encoding. Every
+``forward`` takes ``generator``, a ``torch.Generator`` on the tensors'
+device; ``None`` means deterministic (no dropout). The KV-cached greedy
+decode (``init_cache`` / ``precompute_cross_kv`` / ``decode_step``) is
+deterministic and updates its cache buffers in place.
 """
 from __future__ import annotations
 
@@ -45,10 +49,31 @@ class TorchLinear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), else 0; the identity without a generator or
+    at rate 0. The draw comes from ``generator`` (on x's device)."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def causal_mask(length: int, dtype: torch.dtype = torch.float32,
                 device=None) -> torch.Tensor:
     """[L, L] additive mask: 0 on and below the diagonal, -inf above."""
     allowed = torch.ones(length, length, dtype=torch.bool, device=device).tril()
+    return torch.where(allowed, 0.0, float("-inf")).to(dtype)
+
+
+def block_causal_mask(blocks: int, length: int,
+                      dtype: torch.dtype = torch.float32,
+                      device=None) -> torch.Tensor:
+    """[blocks*length]^2 additive mask: causal within each diagonal block,
+    -inf across blocks (``blocks`` causal sequences packed into one)."""
+    allowed = torch.block_diag(*[torch.ones(
+        length, length, dtype=torch.bool, device=device).tril()] * blocks)
     return torch.where(allowed, 0.0, float("-inf")).to(dtype)
 
 
@@ -75,11 +100,12 @@ class MultiheadAttention(nn.Module):
     incremental pieces the greedy decode uses."""
 
     def __init__(self, embed_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} % num_heads {num_heads}")
-        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.embed_dim, self.num_heads, self.dropout = (
+            embed_dim, num_heads, dropout)
         self.head_dim = embed_dim // num_heads
         self.compute_dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
@@ -96,21 +122,23 @@ class MultiheadAttention(nn.Module):
         b, l, _ = x.shape
         return x.reshape(b, l, self.num_heads, self.head_dim).transpose(1, 2)
 
-    def _attend(self, q, k, v, mask=None) -> torch.Tensor:
+    def _attend(self, q, k, v, mask=None, generator=None) -> torch.Tensor:
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
             / math.sqrt(self.head_dim)
         if mask is not None:
             scores = scores + mask
-        weights = torch.softmax(scores, dim=-1)
+        weights = dropout(torch.softmax(scores, dim=-1), self.dropout,
+                          generator)
         out = torch.matmul(weights.to(v.dtype).float(), v.float())
         return out.to(self.compute_dtype)
 
     def forward(self, query, key, value,
-                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                attn_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         q = self._split(self._proj(query, 0))
         k = self._split(self._proj(key, 1))
         v = self._split(self._proj(value, 2))
-        out = self._attend(q, k, v, attn_mask)            # [B, h, Lq, hd]
+        out = self._attend(q, k, v, attn_mask, generator)  # [B, h, Lq, hd]
         b, _, lq, _ = out.shape
         return self.out_proj(out.transpose(1, 2).reshape(b, lq, self.embed_dim))
 
@@ -135,42 +163,55 @@ class MultiheadAttention(nn.Module):
 
 
 class _FeedForward(nn.Module):
-    def __init__(self, d_model, ffn_dim, dtype):
+    def __init__(self, d_model, ffn_dim, dtype, dropout):
         super().__init__()
+        self.dropout = dropout
         self.linear1 = TorchLinear(d_model, ffn_dim, dtype=dtype)
         self.linear2 = TorchLinear(ffn_dim, d_model, dtype=dtype)
 
-    def ffn(self, x):
-        return self.linear2(torch.relu(self.linear1(x)))
+    def ffn(self, x, generator=None):
+        h = dropout(torch.relu(self.linear1(x)), self.dropout, generator)
+        return self.linear2(h)
+
+    def drop(self, x, generator):
+        return dropout(x, self.dropout, generator)
 
 
 class EncoderLayer(_FeedForward):
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(d_model, ffn_dim, dtype)
-        self.self_attn = MultiheadAttention(d_model, num_heads, dtype)
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__(d_model, ffn_dim, dtype, dropout)
+        self.self_attn = MultiheadAttention(d_model, num_heads, dtype,
+                                            dropout)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
 
-    def forward(self, src):
-        src = self.norm1(src + self.self_attn(src, src, src))
-        return self.norm2(src + self.ffn(src))
+    def forward(self, src, generator=None):
+        attn = self.self_attn(src, src, src, generator=generator)
+        src = self.norm1(src + self.drop(attn, generator))
+        return self.norm2(src + self.drop(self.ffn(src, generator), generator))
 
 
 class DecoderLayer(_FeedForward):
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(d_model, ffn_dim, dtype)
-        self.self_attn = MultiheadAttention(d_model, num_heads, dtype)
-        self.multihead_attn = MultiheadAttention(d_model, num_heads, dtype)
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+        super().__init__(d_model, ffn_dim, dtype, dropout)
+        self.self_attn = MultiheadAttention(d_model, num_heads, dtype,
+                                            dropout)
+        self.multihead_attn = MultiheadAttention(d_model, num_heads, dtype,
+                                                 dropout)
         self.norm1 = LayerNorm(d_model, dtype=dtype)
         self.norm2 = LayerNorm(d_model, dtype=dtype)
         self.norm3 = LayerNorm(d_model, dtype=dtype)
 
-    def forward(self, tgt, memory, tgt_mask=None):
-        tgt = self.norm1(tgt + self.self_attn(tgt, tgt, tgt, attn_mask=tgt_mask))
-        tgt = self.norm2(tgt + self.multihead_attn(tgt, memory, memory))
-        return self.norm3(tgt + self.ffn(tgt))
+    def forward(self, tgt, memory, tgt_mask=None, generator=None):
+        attn = self.self_attn(tgt, tgt, tgt, attn_mask=tgt_mask,
+                              generator=generator)
+        tgt = self.norm1(tgt + self.drop(attn, generator))
+        cross = self.multihead_attn(tgt, memory, memory, generator=generator)
+        tgt = self.norm2(tgt + self.drop(cross, generator))
+        return self.norm3(tgt + self.drop(self.ffn(tgt, generator),
+                                          generator))
 
     def decode_step(self, x_t, self_kv: KV, cross_kv: KV, t: int,
                     memory_group: int = 1):
@@ -192,33 +233,35 @@ class DecoderLayer(_FeedForward):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
-                 ffn_dim: int, dtype: torch.dtype = torch.float32):
+                 ffn_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, num_heads, ffn_dim, dtype)
+            EncoderLayer(d_model, num_heads, ffn_dim, dtype, dropout)
             for _ in range(num_layers))
         self.norm = LayerNorm(d_model, dtype=dtype)
 
-    def forward(self, src):
+    def forward(self, src, generator=None):
         for layer in self.layers:
-            src = layer(src)
+            src = layer(src, generator)
         return self.norm(src)
 
 
 class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, d_model: int, num_heads: int,
-                 ffn_dim: int, dtype: torch.dtype = torch.float32):
+                 ffn_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads, self.d_model, self.compute_dtype = (
             num_heads, d_model, dtype)
         self.layers = nn.ModuleList(
-            DecoderLayer(d_model, num_heads, ffn_dim, dtype)
+            DecoderLayer(d_model, num_heads, ffn_dim, dtype, dropout)
             for _ in range(num_layers))
         self.norm = LayerNorm(d_model, dtype=dtype)
 
-    def forward(self, tgt, memory, tgt_mask=None):
+    def forward(self, tgt, memory, tgt_mask=None, generator=None):
         for layer in self.layers:
-            tgt = layer(tgt, memory, tgt_mask=tgt_mask)
+            tgt = layer(tgt, memory, tgt_mask=tgt_mask, generator=generator)
         return self.norm(tgt)
 
     def init_cache(self, batch: int, max_len: int, device=None) -> List[KV]:
@@ -246,10 +289,13 @@ class TransformerDecoder(nn.Module):
 
 
 class PositionalEncoding(nn.Module):
-    """Sinusoidal positions; the table is a non-persistent buffer."""
+    """Sinusoidal positions, then dropout; the table is a non-persistent
+    buffer."""
 
-    def __init__(self, d_model: int, max_len: int = 5000):
+    def __init__(self, d_model: int, max_len: int = 5000,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         position = torch.arange(max_len, dtype=torch.float32)[:, None]
         div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
                              * (-math.log(10000.0) / d_model))
@@ -258,5 +304,6 @@ class PositionalEncoding(nn.Module):
         pe[:, 1::2] = torch.cos(position * div_term)
         self.register_buffer("pe", pe, persistent=False)
 
-    def forward(self, x):
-        return x + self.pe[None, :x.shape[1]].to(x.dtype)
+    def forward(self, x, generator=None):
+        return dropout(x + self.pe[None, :x.shape[1]].to(x.dtype),
+                       self.dropout, generator)

@@ -1,1 +1,2 @@
-"""Eval metrics and the greedy-eval step."""
+"""The train step (losses, metrics, Adam with StepLR, checkpoints, meters)
+and the greedy-eval step."""

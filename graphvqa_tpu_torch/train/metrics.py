@@ -1,14 +1,32 @@
-"""Per-row program match signals (port of
-``graphvqa_tpu/train/metrics.py:program_match_vectors``)."""
+"""Metric kernels of the train and eval steps (port of
+``graphvqa_tpu/train/metrics.py``). Each count comes back as a
+(correct, denominator) pair of tensors on the inputs' device, so callers can
+sum across batches before dividing."""
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, k: int = 1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, C] logits vs [B] labels -> (num_correct, batch)."""
+    topi = logits.topk(k, dim=-1).indices
+    correct = (topi == labels.long()[:, None]).any(dim=-1)
+    return correct.sum(), torch.tensor(labels.shape[0], device=labels.device)
 
 
 def _sequence_match(predictions, target, padding_idx: int) -> torch.Tensor:
     """[B, L] exact match per row: token equal or target is pad."""
     preds = predictions[:, :target.shape[1]]
     return ((preds == target) | (target == padding_idx)).all(dim=1)
+
+
+def string_exact_match_acc(predictions, target, padding_idx: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    match = _sequence_match(predictions, target, padding_idx)
+    return match.sum(), torch.tensor(target.shape[0], device=target.device)
 
 
 def program_match_vectors(predictions, target, padding_idx: int = 1,
@@ -20,3 +38,17 @@ def program_match_vectors(predictions, target, padding_idx: int = 1,
     group_match = match.reshape(-1, group_size).all(dim=1)
     empty = (target[:, 2] == padding_idx) & match
     return match, group_match, empty
+
+
+def program_string_exact_match_acc(predictions, target, padding_idx: int = 1,
+                                   group_size: int = 5):
+    """((instr_correct, instr_total), (group_correct, group_total),
+    (non_empty_correct, non_empty_total)); see program_match_vectors."""
+    match, group_match, empty = program_match_vectors(
+        predictions, target, padding_idx, group_size)
+    total = target.shape[0]
+    dev = target.device
+    n_empty = empty.sum()
+    return ((match.sum(), torch.tensor(total, device=dev)),
+            (group_match.sum(), torch.tensor(total // group_size, device=dev)),
+            (match.sum() - n_empty, total - n_empty))

@@ -1,4 +1,5 @@
-"""The GAT-round CUDA kernel against its plain PyTorch twin, on the card.
+"""The GAT-round CUDA kernels (forward and backward) against their plain
+PyTorch twins, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no JAX, so it runs
 on a machine that has only the port's dependencies:
@@ -9,6 +10,9 @@ The kernel is held to the plain version's float32 result on the same input
 values. Tolerances: f32 rtol/atol 1e-4 (the same f32 sums in another order);
 bf16 rtol 2^-8 and atol 1e-5: the kernel accumulates in f32 and rounds its
 output once, so half a bf16 ulp plus the f32 reordering is all it may lose.
+The backward is held the same way: its float32 outputs (d_alpha_l,
+d_alpha_r, d_alpha_e) to rtol/atol 1e-4, its outputs in xw's dtype (d_xw,
+d_ins_value) to TOL; two runs of it must agree bit for bit.
 """
 import pathlib
 import subprocess
@@ -21,10 +25,12 @@ import torch
 
 from graphvqa_tpu_torch.core.packing import GraphSample, pack_graphs_dense
 from graphvqa_tpu_torch.ops.dense import dense_local_indices
-from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_reference
+from graphvqa_tpu_torch.ops.gat_round import (
+    gat_round, gat_round_backward, gat_round_backward_reference,
+    gat_round_reference)
 # a top-level import: pytest puts tests/ on sys.path, and the card's machine
 # may have another package named `tests`
-from torch_port_fixtures import tiny_gat_seq
+from torch_port_fixtures import tiny_gat_seq, tiny_train_case
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -233,3 +239,198 @@ def test_kernel_stops_on_unsorted_edges():
                           cwd=pathlib.Path(__file__).resolve().parents[1])
     assert proc.returncode != 0, proc.stdout
     assert "assert" in proc.stderr.lower(), proc.stderr[-2000:]
+
+
+def _keep(args, rate, seed):
+    """A dropout scale [B, epg, H] (0 or 1/(1-rate)) for the inputs."""
+    B, epg, H = args[5].shape
+    gen = torch.Generator(device=args[0].device).manual_seed(seed)
+    keep = torch.rand(B, epg, H, generator=gen, device=args[0].device)
+    return (keep >= rate).float() / (1.0 - rate)
+
+
+def _check_backward(args, ins, keep, npg, epg, shift, dtype, seed=0):
+    dev = args[0].device
+    N, _, C = args[6].shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grad = torch.randn(N, C, generator=gen, device=dev).to(dtype)
+    before = gat_round_backward.launches
+    got = gat_round_backward(grad, *args, ins, keep, npg=npg, epg=epg,
+                             shift=shift)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    want = gat_round_backward_reference(
+        grad.float(), *f32, None if ins is None else ins.float(), keep,
+        npg=npg, epg=epg, shift=shift)
+    torch.cuda.synchronize()
+    assert gat_round_backward.launches == before + 1
+    names = ("d_xw", "d_alpha_l", "d_alpha_r", "d_alpha_e", "d_ins_value")
+    for name, g, w in zip(names, got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert torch.isfinite(g).all(), name
+        tol = TOL[dtype] if name in ("d_xw", "d_ins_value") else TOL[
+            torch.float32]
+        torch.testing.assert_close(g.float(), w.float(), **tol, msg=name)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("with_ins", [False, True])
+@pytest.mark.parametrize("shift", ["graph", "dst"])
+def test_backward_matches_plain_version_main_widths(shift, with_ins,
+                                                    with_keep, dtype):
+    """npg=64, epg=256, H=4, C=300 on 64 graphs, with and without the
+    instruction share and the attention dropout scale."""
+    dev = _device()
+    args, ins = _inputs(64, 256, 64, 4, 300, dtype, seed=11, dev=dev)
+    keep = _keep(args, 0.1, seed=12) if with_keep else None
+    _check_backward(args, ins if with_ins else None, keep, 64, 256, shift,
+                    dtype)
+
+
+@pytest.mark.parametrize("npg,epg", [(16, 64), (32, 128), (64, 512),
+                                     (128, 1024)])
+def test_backward_ladder_rungs(npg, epg):
+    """Other rungs, an odd channel count and another head count."""
+    dev = _device()
+    args, ins = _inputs(npg, epg, 8, 3, 7, torch.float32, seed=13, dev=dev)
+    _check_backward(args, ins, _keep(args, 0.2, seed=14), npg, epg, "dst",
+                    torch.float32)
+
+
+@pytest.mark.parametrize("npg,epg,n,dtype", [
+    (64, 256, 64, torch.bfloat16), (64, 256, 64, torch.float32),
+    (128, 1024, 128, torch.bfloat16)])
+def test_backward_full_graphs(npg, epg, n, dtype):
+    """Graphs of npg real nodes (the forward's chunked case)."""
+    dev = _device()
+    args, ins = _graph_inputs(_full_graphs(npg, epg, 40, n, seed=15), 4, 300,
+                              dtype, seed=15, dev=dev)
+    for shift in ("graph", "dst"):
+        _check_backward(args, ins, None, npg, epg, shift, dtype)
+
+
+@pytest.mark.parametrize("B", [1, 7, 133])
+def test_backward_graphs_without_edges(B):
+    """Graphs without real edges and dummy graphs get exact zeros."""
+    dev = _device()
+    args, ins = _inputs(64, 256, B, 4, 300, torch.bfloat16, seed=16,
+                        dev=dev, dummies=min(2, B - 1))
+    args[2][1::5] = 0.0
+    got = _check_backward(args, ins, None, 64, 256, "graph", torch.bfloat16)
+    empty = (args[2].sum(dim=1) == 0).nonzero().flatten()
+    d_xw = got[0].reshape(B, 64, 4, 300)
+    assert (d_xw[empty] == 0).all() and (got[3][empty] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_unaligned_inputs(dtype):
+    """xw, ins and the upstream gradient sliced one element into larger
+    buffers."""
+    dev = _device()
+    args, ins = _inputs(64, 256, 40, 4, 300, dtype, seed=17, dev=dev)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    _check_backward(args[:6] + (shifted(args[6]),), shifted(ins), None, 64,
+                    256, "graph", dtype)
+
+
+def test_backward_runs_agree_bit_for_bit():
+    dev = _device()
+    args, ins = _inputs(64, 256, 300, 4, 300, torch.bfloat16, seed=18,
+                        dev=dev)
+    keep = _keep(args, 0.1, seed=19)
+    grad = torch.randn(args[6].shape[0], 300, device=dev).bfloat16()
+    first = gat_round_backward(grad, *args, ins, keep, npg=64, epg=256)
+    second = gat_round_backward(grad, *args, ins, keep, npg=64, epg=256)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_with_dropout_scale_and_attention(dtype):
+    """The training options of the forward kernel against the twin: the
+    dropout scale and the attention output (0 on padded edges)."""
+    dev = _device()
+    args, ins = _inputs(64, 256, 140, 4, 300, dtype, seed=20, dev=dev)
+    keep = _keep(args, 0.1, seed=21)
+    out, alpha = gat_round(*args, ins, npg=64, epg=256, keep_scale=keep,
+                           return_alpha=True)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    want, want_alpha = gat_round_reference(
+        *f32, ins.float(), npg=64, epg=256, keep_scale=keep,
+        return_alpha=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want, **TOL[dtype])
+    torch.testing.assert_close(alpha.float(), want_alpha, **TOL[dtype])
+    assert alpha.dtype == dtype
+    assert (alpha[args[2].reshape(-1) == 0] == 0).all()
+
+
+def test_autograd_through_both_kernels():
+    """gat_round with inputs that require grad: one forward and one backward
+    launch, and the gradients of the plain version's autograd."""
+    dev = _device()
+    args, ins = _inputs(64, 256, 64, 4, 300, torch.float32, seed=22, dev=dev)
+    keep = _keep(args, 0.1, seed=23)
+    grad = torch.randn(args[6].shape[0], 300, device=dev)
+
+    def run(fn):
+        leaves = [a.clone().requires_grad_(True) for a in args[3:]]
+        ins_ = ins.clone().requires_grad_(True)
+        out = fn(*args[:3], *leaves, ins_, npg=64, epg=256, keep_scale=keep)
+        out.backward(grad)
+        return [t.grad for t in leaves + [ins_]]
+
+    f0, b0 = gat_round.launches, gat_round_backward.launches
+    got = run(gat_round)
+    assert (gat_round.launches - f0, gat_round_backward.launches - b0) == (
+        1, 1)
+    want = run(gat_round_reference)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_train_step_on_the_card_matches_the_cpu():
+    """One float32 train step of a small model, card against CPU from the
+    same weights (dropout 0): loss to rtol 1e-5, gradients within 1e-4 of
+    each tensor's largest |gradient| plus 1e-7, updated parameters to 1e-6
+    where the CPU's |gradient| > 1e-5, both kernels launched once per round.
+    """
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.train.loop import make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = _device()
+    cfg, batch = tiny_train_case()
+    runs = []
+    for device in ("cpu", dev):
+        model = build_model(cfg.model, device=device, seed=3)
+        state = create_train_state(model, lr=1e-3)
+        f0, b0 = gat_round.launches, gat_round_backward.launches
+        _, m = make_train_step(model, cfg)(
+            state, batch.to(device), torch.Generator(device=device))
+        launched = (gat_round.launches - f0, gat_round_backward.launches - b0)
+        runs.append((float(m["total"]), launched, {
+            n: (p.detach().cpu(), None if p.grad is None else p.grad.cpu())
+            for n, p in model.named_parameters()}))
+    (loss_c, launched_c, cpu), (loss_g, launched_g, gpu) = runs
+    rounds = cfg.model.engine.num_rounds
+    assert launched_c == (0, 0) and launched_g == (rounds, rounds)
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-5)
+    for n, (p_c, g_c) in cpu.items():
+        p_g, g_g = gpu[n]
+        if g_c is None:
+            assert g_g is None, n
+            continue
+        torch.testing.assert_close(g_g, g_c, rtol=0, msg=n,
+                                   atol=1e-4 * float(g_c.abs().max()) + 1e-7)
+        ok = g_c.abs() > 1e-5
+        torch.testing.assert_close(p_g[ok], p_c[ok], rtol=0, atol=1e-6,
+                                   msg=n)

@@ -124,6 +124,7 @@ def test_port_config_mirrors_jax_config():
     got = dataclasses.asdict(pcfg.gat_config())
     assert got["model"] == want["model"]
     assert got["batch"] == want["batch"]
+    assert got["train"] == want["train"]
 
 
 def test_port_runs_without_jax_flax_or_the_jax_package():
@@ -137,7 +138,8 @@ from graphvqa_tpu_torch.config import (
     TransformerConfig)
 from graphvqa_tpu_torch.core import GraphSample, QABatch, pack_graphs_dense
 from graphvqa_tpu_torch.models.pipeline import build_model
-from graphvqa_tpu_torch.train.loop import make_eval_step
+from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
+from graphvqa_tpu_torch.train.train_state import create_train_state
 cfg = ModelConfig(
     text=TextConfig(vocab_size=60, emb_dim=16),
     scene=SceneGraphConfig(vocab_size=40, emb_dim=12),
@@ -160,6 +162,9 @@ batch = QABatch(g, t(rng.integers(4, 60, (2, 7))), t(rng.integers(4, 60, (6, 6))
 model = build_model(cfg, device="cpu")
 vectors, tokens, attention = make_eval_step(model, Config(model=cfg))(batch)
 assert tokens.shape == (6, 8) and torch.isfinite(vectors["sa_score"]).all()
+state, m = make_train_step(model, Config(model=cfg))(
+    create_train_state(model), batch, torch.Generator().manual_seed(0))
+assert state.step == 1 and torch.isfinite(m["total"])
 assert not any(sys.modules.get(n) for n in ("jax", "flax", "graphvqa_tpu"))
 print("port ok")
 """
