@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero:
               options (dropout scale, attention output) against the twin
   3. backward the backward kernel against its plain version on the same
               batch (bf16 and f32, both shifts, with the share, with and
-              without the dropout scale); device time, bound, plain time
+              without the dropout scale); device time, bound, the wrapper's
+              host time per call, plain time, and the (graph, head) work
+              units the kernel's counter handed out per launch
   4. parity   the full-width gat_config() model (random seeded weights,
               random BatchNorm statistics, bf16) on B=8, card against CPU
   5. serve    make_eval_step on 3 requests of B=512 at full width; the kernel
@@ -385,10 +387,15 @@ def phase_backward(dev):
         again = gat_round_backward(*call_args, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"gat_round_backward {name} shift={shift}: two runs differ")
+        units = int(gat_round_backward.counter)
+        if units != B * H:
+            fail(f"gat_round_backward handed out {units} work units, "
+                 f"expected B*H = {B * H}")
         call = lambda: gat_round_backward(*call_args, **kw)  # noqa: E731
         k_ms = device_median_ms(call, "gat_round_backward_kernel", flush)
         if k_ms is None:
             fail("torch.profiler recorded no gat_round_backward_kernel time")
+        host_us = host_us_per_call(call)
         p_ms = cuda_median_ms(
             lambda: gat_round_backward_reference(*call_args, **kw),
             reps=5, inner=2, warmup=1)
@@ -403,9 +410,11 @@ def phase_backward(dev):
             bound_by="bytes" if t_bytes >= t_ops else "operations")
         log(f"[backward] {name:8s} shift={shift:5s} keep={with_keep!s:5s} "
             f"max_abs_err={err:.3e} deterministic device={k_ms * 1e3:.2f}us "
-            f"cold-L2 ({100 * bound / k_ms:.1f}% of bound); plain="
-            f"{p_ms * 1e3:.1f}us bound={bound * 1e3:.2f}us "
-            f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            f"cold-L2 ({100 * bound / k_ms:.1f}% of bound); wrapper host "
+            f"{host_us:.2f}us/call; plain={p_ms * 1e3:.1f}us bound="
+            f"{bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
+            f"GFLOP); work units per launch {units} ({B} graphs x {H} "
+            f"heads, from the counter)")
     return results
 
 

@@ -23,7 +23,10 @@ Training adds two options to the forward, the attention dropout scale
 tensors and runs :func:`gat_round_backward_reference` on CPU tensors, and
 :class:`GATRoundFunction` ties both directions into autograd. The backward
 gives the JAX package's gradient, including its derivative of 1/2 where an
-edge's logit equals the softmax shift (``minimum`` at a tie).
+edge's logit equals the softmax shift (``minimum`` at a tie). Its blocks take
+(graph, head) units from a counter of their own, allocated and zeroed the
+same way; ``gat_round_backward.counter`` keeps the last launch's, which ends
+holding the number of units handed out.
 
 The wrapper takes each graph's edges as the dense packing lays them out
 (``core/packing.py:pack_graphs_dense``): the real edges first, sorted by
@@ -71,9 +74,9 @@ class KernelLibrary:
         fwd.gat_round_smem_bytes.restype = ctypes.c_size_t
         bwd = ctypes.CDLL(str(paths["backward"]))
         bwd.gat_round_backward_launch.argtypes = (
-            [ci] + [vp] * 15 + [ci] * 5 + [cf, ci, vp])
+            [ci] + [vp] * 16 + [ci] * 5 + [cf, ci, vp])
         bwd.gat_round_backward_launch.restype = ci
-        bwd.gat_round_backward_smem_bytes.argtypes = [ci] * 3
+        bwd.gat_round_backward_smem_bytes.argtypes = [ci] * 5
         bwd.gat_round_backward_smem_bytes.restype = ctypes.c_size_t
         self.fwd, self.bwd = fwd, bwd
 
@@ -409,26 +412,34 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
     lib = _library or load_library()
     code = _DTYPES[xw.dtype]
     _smem_check("gat_round_backward",
-                lambda: lib.bwd.gat_round_backward_smem_bytes(npg, epg, H),
+                lambda: lib.bwd.gat_round_backward_smem_bytes(
+                    npg, epg, H, C, code),
                 (npg, epg, H, C, code), dev)
     d_xw = torch.empty_like(xw)
     d_al = torch.empty((N, H), dtype=torch.float32, device=dev)
     d_ar = torch.empty_like(d_al)
     d_ae = torch.empty((B, epg, H), dtype=torch.float32, device=dev)
     d_ins = None if ins_value is None else torch.empty_like(ins_value)
+    # the kernel's (graph, head) work counter, which the library zeroes on
+    # the stream; it ends holding the number of units handed out
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     args = (code, dl.data_ptr(), sl.data_ptr(), mask.data_ptr(),
             alpha_l.data_ptr(), alpha_r.data_ptr(), alpha_e.data_ptr(),
             _ptr(keep_scale), xw.data_ptr(), _ptr(ins_value),
             grad_out.data_ptr(), d_xw.data_ptr(), d_al.data_ptr(),
-            d_ar.data_ptr(), d_ae.data_ptr(), _ptr(d_ins), B, npg, epg, H, C,
-            float(negative_slope), int(shift == "graph"))
+            d_ar.data_ptr(), d_ae.data_ptr(), _ptr(d_ins),
+            counter.data_ptr(), B, npg, epg, H, C, float(negative_slope),
+            int(shift == "graph"))
     _launch(lib.bwd.gat_round_backward_launch, args, dev,
             "gat_round_backward")
     gat_round_backward.launches += 1
+    gat_round_backward.counter = counter
     return d_xw, d_al, d_ar, d_ae, d_ins
 
 
 gat_round_backward.launches = 0
+# the last launch's work counter (None before the first launch)
+gat_round_backward.counter = None
 
 
 class GATRoundFunction(torch.autograd.Function):

@@ -76,15 +76,15 @@ def _graph_inputs(g, H, C, dtype, seed, dev):
 
 
 def _full_graphs(npg, epg, B, n, seed):
-    """B graphs of exactly n nodes whose edges reach the last node, so each
-    graph's staged xw rows are n full rows."""
+    """B graphs of exactly n nodes whose edges leave and reach the last
+    node, so each graph's staged xw rows and g rows are n full rows."""
     rng = np.random.default_rng(seed)
     samples = []
     for _ in range(B):
         e = int(rng.integers(n, epg + 1))
         src = rng.integers(0, n, size=e).astype(np.int32)
         dst = rng.integers(0, n, size=e).astype(np.int32)
-        src[0] = n - 1
+        src[0] = dst[1] = n - 1
         samples.append(GraphSample(
             node_tokens=np.ones((n, 12), np.int32), edge_src=src,
             edge_dst=dst, edge_tokens=np.ones((e, 1), np.int32),
@@ -310,6 +310,84 @@ def test_backward_full_graphs(npg, epg, n, dtype):
                               dtype, seed=15, dev=dev)
     for shift in ("graph", "dst"):
         _check_backward(args, ins, None, npg, epg, shift, dtype)
+
+
+@pytest.mark.parametrize("npg,epg,n,dtype", [
+    # on an H100 (two blocks per SM): 55 xw rows, ins and 55 g rows fill the
+    # tensor-core stage (93,312 of 93,840 bytes); 56 take the packed path
+    (64, 256, 55, torch.bfloat16), (64, 256, 56, torch.bfloat16),
+    # 38 + 38 f32 rows fill the stage; 39 + 39 go in 3 channel chunks
+    (64, 256, 38, torch.float32), (64, 256, 39, torch.float32),
+    # the ring of chunks: 10 of 32 channels in bf16, 19 of 16 in f32
+    (128, 1024, 128, torch.bfloat16), (128, 1024, 128, torch.float32)])
+def test_backward_stage_filling_and_chunked_graphs(npg, epg, n, dtype):
+    """Units whose staged rows (n xw rows of one head, n g rows) fill the
+    row stage, and units one row past it or far past it, whose channels go
+    through the two-stage ring of chunks, at C=300, H=4."""
+    dev = _device()
+    args, ins = _graph_inputs(_full_graphs(npg, epg, 40, n, seed=24), 4, 300,
+                              dtype, seed=24, dev=dev)
+    keep = _keep(args, 0.1, seed=25)
+    for shift in ("graph", "dst"):
+        _check_backward(args, ins, keep, npg, epg, shift, dtype)
+
+
+@pytest.mark.parametrize("B", [1, 7, 133, 400])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_graph_counts_around_the_persistent_grid(B, dtype):
+    """B*H (graph, head) units below the persistent grid (two blocks per
+    SM), not a multiple of it, and several units per block (the meta ring
+    turns over), with graphs without real edges in the middle and dummy
+    graphs at the end; the counter ends holding B*H."""
+    dev = _device()
+    args, ins = _inputs(64, 256, B, 4, 300, dtype, seed=26, dev=dev,
+                        dummies=min(2, B - 1))
+    args[2][1::5] = 0.0
+    _check_backward(args, ins, _keep(args, 0.1, seed=27), 64, 256, "graph",
+                    dtype)
+    assert int(gat_round_backward.counter) == B * 4
+
+
+@pytest.mark.parametrize("H,C", [(1, 300), (6, 36)])
+def test_backward_other_head_counts(H, C):
+    """Another head count with C a multiple of 4 (the vector path)."""
+    dev = _device()
+    args, ins = _inputs(64, 256, 50, H, C, torch.bfloat16, seed=28, dev=dev)
+    _check_backward(args, ins, _keep(args, 0.1, seed=29), 64, 256, "dst",
+                    torch.bfloat16)
+
+
+def test_backward_replays_in_a_cuda_graph():
+    """Captured once and replayed twice against the plain version: the work
+    counter is zeroed by a node of the captured graph, so every replay hands
+    every unit out again, and the replays equal an eager call bit for bit."""
+    dev = _device()
+    args, ins = _inputs(64, 256, 300, 4, 300, torch.bfloat16, seed=30,
+                        dev=dev)
+    keep = _keep(args, 0.1, seed=31)
+    grad = torch.randn(args[6].shape[0], 300, device=dev).bfloat16()
+    kw = dict(npg=64, epg=256, shift="graph")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = gat_round_backward(grad, *args, ins, keep, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = gat_round_backward(grad, *args, ins, keep, **kw)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    want = gat_round_backward_reference(grad.float(), *f32, ins.float(), keep,
+                                        **kw)
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w, e in zip(got, want, eager):
+            tol = TOL[torch.bfloat16] if g.dtype == torch.bfloat16 else TOL[
+                torch.float32]
+            torch.testing.assert_close(g.float(), w.float(), **tol)
+            assert torch.equal(g, e)
 
 
 @pytest.mark.parametrize("B", [1, 7, 133])
