@@ -32,6 +32,27 @@ Phases, in order; any failure exits non-zero:
   8. train-parity  one float32 train step of the full-width model on B=8,
               card against CPU: loss, every gradient, updated parameters
               and BatchNorm running statistics
+  9. data     the port's synthetic generator writes a GQA-shaped set (4,096
+              train and 1,024 val questions, 1,540 scenes) under
+              build/chip_smoke/; the native packer must be the one in use;
+              dataset prewarm time, collate rate at B=512 with 0 and 2
+              workers (batches/s, ms per batch), the layout counts and the
+              dense rungs the batches reached
+ 10. ladder   both kernels against their plain versions, bf16 and f32, at
+              every rung phase 9 reached and at (256, 1024) and (512, 2048),
+              at B=512 on those batches with one graph filling the rung;
+              max error and device time per rung (the worst error goes into
+              the kernels line as ladder_max_abs_err, apart from
+              max_abs_err, which stays that of phases 2 and 3)
+ 11. cli      python -m graphvqa_tpu_torch.cli.train_cli at full width
+              (B=512, --workers 2 --validate-every 1 --fast-validate 2):
+              one epoch on phase 9's data with a checkpoint, then --resume
+              --evaluate with the result and attention dumps, then the
+              port's scorer over them; steps/s, epoch wall, data-wait, eval
+              QA/s, the scorer's accuracy, and the kernel launches the CLI
+              counted (5 forward per eval step, 5 + 5 per train step); then
+              one batch forced into the flat layout through the eval step,
+              card against CPU, and a train step on the card
 
 The last two lines are the card's name and power limit (nvidia-smi) and a
 {"kernels": [...]} summary before the final {"ok": true, "device": ...}.
@@ -42,6 +63,9 @@ from __future__ import annotations
 
 import json
 import math
+import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -720,6 +744,349 @@ def phase_train_parity(dev):
         f"{cpu['seconds']:.2f}s")
 
 
+SMOKE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the ladder's top rungs, which GQA-shaped data rarely or never reaches
+FORCED_RUNGS = ((256, 1024), (512, 2048))
+
+
+def _rung(graphs):
+    return graphs.nodes_per_graph, graphs.edges_per_graph
+
+
+def phase_data(cfg):
+    """Phase 9: synthetic GQA-shaped data, the dataset's prewarm, the
+    collate's rate at B=512 in-process and with two workers."""
+    import dataclasses
+    from graphvqa_tpu_torch.core.native import packer_name
+    from graphvqa_tpu_torch.data import (
+        GQADataset, build_scene_graph_vocab, build_text_vocab, tokenize)
+    from graphvqa_tpu_torch.data.synthetic import (
+        write_scorer_questions, write_synthetic_gqa)
+    t_phase = time.perf_counter()
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    data = SMOKE_DIR / "data"
+    t0 = time.perf_counter()
+    write_synthetic_gqa(data, train_questions=4096, val_questions=1024,
+                        scenes=1400, seed=0)
+    write_scorer_questions(data, "val_balanced")
+    t_gen = time.perf_counter() - t0
+    packer = packer_name()
+    if not packer.startswith("native"):
+        fail(f"the collate's packer is {packer}, not the native one")
+    programs = data / "questions" / "train_balanced_programs.json"
+    text_vocab = build_text_vocab(json.loads(programs.read_text()), tokenize)
+    ds = GQADataset(programs, data / "sceneGraphs" / "train_sceneGraphs.json",
+                    text_vocab, build_scene_graph_vocab())
+    t0 = time.perf_counter()
+    ds.prewarm()
+    t_prewarm = time.perf_counter() - t0
+    bc = dataclasses.replace(cfg.batch, num_graphs=B)
+    order = dict(shuffle=True, drop_last=True, size_bucket_windows=16)
+    rates, layouts, rung_batches = {}, {}, {}
+    for workers in (0, 2):
+        for epoch in (0, 1):
+            chunks = ds.batch_order(bc, seed=epoch, **order)
+            t0 = time.perf_counter()
+            n = 0
+            for idx, (meta, batch) in zip(chunks, ds.iter_batches(
+                    bc, seed=epoch, num_workers=workers, **order)):
+                n += 1
+                if workers == 0:
+                    rung_batches.setdefault(_rung(batch.graphs), idx)
+                    if epoch == 0:
+                        layouts[meta["layout"]] = layouts.get(
+                            meta["layout"], 0) + 1
+            rates[(workers, epoch)] = (n, time.perf_counter() - t0)
+    ds.close()
+    for (workers, epoch), (n, sec) in sorted(rates.items()):
+        log(f"[data] collate B={B} workers={workers} epoch {epoch}"
+            f"{' (pool forked)' if workers and not epoch else ''}: {n} "
+            f"batches in {sec:.3f}s = {n / sec:.2f} batches/s, "
+            f"{1e3 * sec / n:.1f} ms per batch")
+    log(f"[data] {len(ds)} train questions, {len(ds.sg_data)} scenes written "
+        f"in {t_gen:.2f}s; prewarm {t_prewarm:.2f}s; packer {packer}; "
+        f"layouts per epoch {layouts}; rungs reached "
+        f"{sorted(rung_batches)}; phase {time.perf_counter() - t_phase:.1f}s")
+    return dict(ds=ds, rung_batches=rung_batches, rates=rates,
+                layouts=layouts, data=data)
+
+
+def _filled(samples, npg, epg, seed):
+    """``samples`` with the first replaced by a graph of npg nodes and epg
+    edges, so the batch fills its rung."""
+    import numpy as np
+    from graphvqa_tpu_torch.core.packing import GraphSample
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, npg, size=epg).astype(np.int32)
+    dst = rng.integers(0, npg, size=epg).astype(np.int32)
+    src[0] = dst[1] = npg - 1
+    full = GraphSample(
+        node_tokens=rng.integers(2, 2000, size=(npg, 12)).astype(np.int32),
+        edge_src=src, edge_dst=dst,
+        edge_tokens=rng.integers(2, 2000, size=(epg, 1)).astype(np.int32),
+        edge_sym=rng.random(epg) > 0.7)
+    return [full] + list(samples[1:])
+
+
+def phase_ladder(dev, data):
+    """Phase 10: both kernels against their plain versions at every rung
+    phase 9 reached and at the forced top rungs, all at the main path's
+    B=512, so every block of the persistent grid takes several graphs."""
+    import torch
+    from graphvqa_tpu_torch.core.packing import pack_graphs_dense
+    from graphvqa_tpu_torch.ops.dense import dense_local_indices
+    from graphvqa_tpu_torch.ops.gat_round import (
+        gat_round, gat_round_backward, gat_round_backward_reference,
+        gat_round_reference)
+    t_phase = time.perf_counter()
+    ds, reached = data["ds"], data["rung_batches"]
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    largest = reached[max(reached)]
+    rungs = sorted(set(reached) | set(FORCED_RUNGS))
+    worst = {"forward": 0.0, "backward": 0.0}
+    names = ("d_xw", "d_alpha_l", "d_alpha_r", "d_alpha_e", "d_ins")
+    for npg, epg in rungs:
+        idx = reached.get((npg, epg), largest)
+        samples = _filled([ds[int(i)]["graph"] for i in idx[:B]], npg, epg,
+                          seed=npg + epg)
+        g = pack_graphs_dense(samples, npg, epg).to(dev)
+        dl, sl = dense_local_indices(g)
+        mask = g.edge_mask.reshape(B, epg).float()
+        gen = torch.Generator(device=dev).manual_seed(npg + epg)
+        randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+        N = B * npg
+        base = (dl, sl, mask, randn(N, H), randn(N, H), randn(B, epg, H))
+        xw32, ins32, grad32 = randn(N, H, C), randn(B, H, C), randn(N, C)
+        keep = (torch.rand(B, epg, H, generator=gen, device=dev)
+                >= DROPOUT).float() / (1.0 - DROPOUT)
+        parts = []
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            xw, ins, grad = xw32.to(dtype), ins32.to(dtype), grad32.to(dtype)
+            kw = dict(npg=npg, epg=epg)
+            got = gat_round(*base, xw, ins, keep_scale=keep, **kw)
+            want = gat_round_reference(*base, xw.float(), ins.float(),
+                                       keep_scale=keep, **kw)
+            bgot = gat_round_backward(grad, *base, xw, ins, keep, **kw)
+            bwant = gat_round_backward_reference(
+                grad.float(), *base, xw.float(), ins.float(), keep, **kw)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[name]
+            diff = (got.float() - want).abs()
+            f_err = float(diff.max())
+            if (not torch.isfinite(got).all()
+                    or bool((diff > atol + rtol * want.abs()).any())):
+                fail(f"gat_round at rung ({npg}, {epg}) {name}: max abs err "
+                     f"{f_err:.3e}")
+            b_err = 0.0
+            for out_name, gb, wb in zip(names, bgot, bwant):
+                batol, brtol = (TOL[name] if out_name in ("d_xw", "d_ins")
+                                else BWD_F32_TOL)
+                d = (gb.float() - wb.float()).abs()
+                b_err = max(b_err, float(d.max()))
+                if (not torch.isfinite(gb).all()
+                        or bool((d > batol + brtol * wb.float().abs()).any())):
+                    fail(f"gat_round_backward at rung ({npg}, {epg}) {name}: "
+                         f"{out_name} max abs err {float(d.max()):.3e}")
+            f_ms = device_median_ms(
+                lambda: gat_round(*base, xw, ins, keep_scale=keep, **kw),
+                "gat_round_kernel", flush, reps=10)
+            b_ms = device_median_ms(
+                lambda: gat_round_backward(grad, *base, xw, ins, keep, **kw),
+                "gat_round_backward_kernel", flush, reps=10)
+            if f_ms is None or b_ms is None:
+                fail(f"torch.profiler recorded no kernel time at rung "
+                     f"({npg}, {epg})")
+            worst["forward"] = max(worst["forward"], f_err)
+            worst["backward"] = max(worst["backward"], b_err)
+            parts.append(f"{name} fwd err {f_err:.2e} {f_ms * 1e3:.1f}us, "
+                         f"bwd err {b_err:.2e} {b_ms * 1e3:.1f}us")
+        log(f"[ladder] rung ({npg}, {epg}) B={B} "
+            f"{'reached' if (npg, epg) in reached else 'forced'}, real "
+            f"edges {int(mask.sum())}: " + "; ".join(parts))
+    log(f"[ladder] {len(rungs)} rungs, worst err forward "
+        f"{worst['forward']:.2e} backward {worst['backward']:.2e}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return worst
+
+
+def _last_match(pattern, text, what):
+    found = re.findall(pattern, text)
+    if not found:
+        fail(f"the CLI printed no {what}")
+    return found[-1]
+
+
+def _run_cli(args, name, timeout=600):
+    """Run the port's train CLI (or scorer) as a subprocess; its output goes
+    to build/chip_smoke/<name>.log; non-zero exit fails."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                          text=True, timeout=timeout,
+                          cwd=pathlib.Path(__file__).resolve().parent)
+    (SMOKE_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"{name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_cli(cfg, dev, data):
+    """Phase 11: the port's train CLI at full width, then a forced flat
+    batch through the eval and train steps."""
+    t_phase = time.perf_counter()
+    root, out = data["data"], SMOKE_DIR / "cli"
+    rounds = cfg.model.engine.num_rounds
+    common = ["graphvqa_tpu_torch.cli.train_cli", "--data-root", str(root),
+              "--batch-size", str(B), "--workers", "2", "--validate-every",
+              "1", "--fast-validate", "2", "--print-freq", "1",
+              "--output_dir", str(out)]
+    train_out, train_s = _run_cli(common + ["--epochs", "1"], "cli_train")
+    steps = 4096 // B
+    if steps < 2:
+        fail("phase 11 needs at least two train steps")
+    m = re.findall(r"epoch sustained: ([\d.]+) qa/s, \S+ edges/s, data-wait "
+                   r"([\d.]+)% \(([\d.]+)s wall\)", train_out)
+    if not m:
+        fail("the CLI printed no epoch summary")
+    qa_s, wait, wall = (float(v) for v in m[-1])
+    # the meters print cumulative QA/s after every step (--print-freq 1):
+    # the wall time at the end of step i is B * (i + 1) / rate_i
+    ends = [B * (i + 1) / float(r) for i, r in enumerate(re.findall(
+        r"  throughput: ([\d.]+) qa/s", train_out))]
+    if len(ends) != steps:
+        fail(f"the CLI printed {len(ends)} step throughputs for {steps} "
+             f"steps")
+    steady_ms = 1e3 * (ends[-1] - ends[0]) / (steps - 1)
+    layouts = json.loads(_last_match(
+        r"collate layout stats \(this epoch\): (\{.*\})", train_out,
+        "layout stats").replace("'", '"'))
+    f_tr, b_tr = (int(v) for v in _last_match(
+        r"kernel launches \(train epoch 0\): gat_round (\d+), "
+        r"gat_round_backward (\d+)", train_out, "train launches"))
+    kernel_steps = steps - layouts["flat_fallback"]
+    if (f_tr, b_tr) != (rounds * kernel_steps, rounds * kernel_steps):
+        fail(f"CLI epoch: gat_round {f_tr} / gat_round_backward {b_tr} "
+             f"launches for {kernel_steps} dense steps, expected {rounds} "
+             f"each per step")
+    val_q = int(_last_match(r"eval sustained: [\d.]+ qa/s \((\d+) questions",
+                            train_out, "validation summary"))
+    f_val = int(_last_match(r"kernel launches \(validate epoch 0\): "
+                            r"gat_round (\d+)", train_out,
+                            "validate launches"))
+    if f_val != rounds * -(-val_q // B):
+        fail(f"CLI validation: {f_val} gat_round launches for {val_q} "
+             f"questions")
+    if not (out / "ckpt" / "ckpt_0.pt").exists():
+        fail("the CLI wrote no checkpoint")
+    eval_out, eval_s = _run_cli(common + [
+        "--resume", str(out / "ckpt"), "--evaluate", "--dump-result",
+        "--dump-attentions"], "cli_evaluate")
+    if "resumed from" not in eval_out:
+        fail("the CLI did not resume from its checkpoint")
+    ev = re.findall(r"eval sustained: ([\d.]+) qa/s \((\d+) questions, "
+                    r"([\d.]+)s wall\)", eval_out)
+    if not ev:
+        fail("the CLI printed no evaluation summary")
+    eval_qa_s, eval_q = float(ev[-1][0]), int(ev[-1][1])
+    f_ev = int(_last_match(r"kernel launches \(evaluate val_balanced\): "
+                           r"gat_round (\d+)", eval_out, "evaluate launches"))
+    if f_ev != rounds * -(-eval_q // B):
+        fail(f"CLI evaluate: {f_ev} gat_round launches for {eval_q} "
+             f"questions")
+    dump = json.loads((out / "dump_results.json").read_text())
+    atts = json.loads((out / "dump_attentions.json").read_text())
+    if len(dump) != eval_q or len(atts) != eval_q:
+        fail(f"dumps hold {len(dump)} results / {len(atts)} attentions for "
+             f"{eval_q} questions")
+    score_out, _ = _run_cli([
+        "graphvqa_tpu_torch.eval.scorer", "--questions",
+        str(root / "questions" / "val_balanced_questions.json"),
+        "--predictions", str(out / "dump_results.json"), "--grounding",
+        "--attentions", str(out / "dump_attentions.json"), "--scenes",
+        str(root / "sceneGraphs" / "val_sceneGraphs.json")], "cli_scorer")
+    accuracy = _last_match(r"(Accuracy: [\d.]+%)", score_out,
+                           "scorer accuracy")
+    grounding = _last_match(r"(Grounding: [\d.]+%)", score_out,
+                            "scorer grounding")
+    log(f"[cli] train epoch at full width, B={B}, workers 2: {steps} steps "
+        f"in {wall:.2f}s wall = {steps / wall:.2f} steps/s, {qa_s:.1f} QA/s "
+        f"(the first step, with the pool's fork and the card's warm-up, "
+        f"{ends[0]:.2f}s; then {steady_ms:.1f} ms per step = "
+        f"{1e3 / steady_ms:.2f} steps/s, {B * 1e3 / steady_ms:.1f} QA/s), "
+        f"data-wait {wait:.1f}%, layouts {layouts}, launches gat_round "
+        f"{f_tr} gat_round_backward {b_tr}; validation {val_q} questions, "
+        f"gat_round {f_val}; process {train_s:.1f}s")
+    log(f"[cli] --resume --evaluate: {eval_q} questions at {eval_qa_s:.1f} "
+        f"QA/s, gat_round {f_ev} launches, dumps {len(dump)} results / "
+        f"{len(atts)} attention rows; process {eval_s:.1f}s; scorer "
+        f"{accuracy}, {grounding}")
+    phase_flat(cfg, dev, data)
+    log(f"[cli] phase {time.perf_counter() - t_phase:.1f}s")
+    return dict(forward=f_tr + f_val + f_ev, backward=b_tr)
+
+
+def phase_flat(cfg, dev, data):
+    """One batch forced into the flat layout (B=8 of the val split with the
+    dense padding at 2 nodes / 8 edges, beyond the ladder): the eval step
+    card against CPU as phase 4 holds it, and a train step on the card."""
+    import dataclasses
+    import torch
+    from graphvqa_tpu_torch.data import GQADataset, build_scene_graph_vocab
+    from graphvqa_tpu_torch.data.vocab import Vocab
+    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    root = data["data"]
+    text_vocab = Vocab.load(SMOKE_DIR / "cli" / "text_vocab.json")
+    sg_vocab = build_scene_graph_vocab()
+    model_cfg = dataclasses.replace(
+        cfg.model,
+        text=dataclasses.replace(cfg.model.text, vocab_size=len(text_vocab)),
+        scene=dataclasses.replace(cfg.model.scene, vocab_size=len(sg_vocab)))
+    fcfg = dataclasses.replace(cfg, model=model_cfg, batch=dataclasses.replace(
+        cfg.batch, num_graphs=8, nodes_per_graph=2, edges_per_graph=8,
+        nodes_pad=1024, edges_pad=8192))
+    ds = GQADataset(root / "questions" / "val_balanced_programs.json",
+                    root / "sceneGraphs" / "val_sceneGraphs.json", text_vocab,
+                    sg_vocab)
+    meta, batch = next(ds.iter_batches(fcfg.batch))
+    if meta["layout"] != "flat_fallback" or batch.graphs.has_dense_layout:
+        fail(f"the forced batch came out {meta['layout']}")
+    outs = {}
+    for device in ("cpu", dev):
+        model = full_model(fcfg, device)
+        f0 = gat_round.launches
+        vectors, tokens, attention = make_eval_step(model, fcfg)(
+            batch.to(device))
+        outs[str(device)] = model.sample(batch.to(device)).short_answer_logits \
+            .float().cpu()
+        if device != "cpu":
+            if gat_round.launches != f0:
+                fail("the flat batch launched the GAT kernel")
+            gen = torch.Generator(device=device).manual_seed(0)
+            _, m = make_train_step(model, fcfg)(create_train_state(model),
+                                               batch.to(device), gen)
+            loss = float(m["total"])
+            if not math.isfinite(loss):
+                fail(f"flat train step on the card: loss {loss}")
+        del model
+    g, c = outs[str(dev)], outs["cpu"]
+    if g.shape != (8, cfg.model.num_answers) or not torch.isfinite(g).all():
+        fail("flat batch: card logits of the wrong shape or not finite")
+    err = float((g - c).abs().max())
+    same = g.argmax(-1) == c.argmax(-1)
+    top2 = c.topk(2, dim=-1).values
+    close = (top2[:, 0] - top2[:, 1]) <= PARITY_ATOL
+    if err > PARITY_ATOL or bool((~same & ~close).any()):
+        fail(f"flat batch: card and CPU logits differ by {err:.4f}")
+    log(f"[cli] forced flat batch (B=8, {int(batch.graphs.node_mask.sum())} "
+        f"nodes / {int(batch.graphs.edge_mask.sum())} edges in "
+        f"{batch.graphs.nodes_pad} / {batch.graphs.edges_pad} slots): "
+        f"max |logit card - cpu| {err:.4f} (limit {PARITY_ATOL}), argmax "
+        f"equal on {int(same.sum())}/8; train step on the card loss "
+        f"{loss:.5f}; no kernel launched (the flat round is plain ops)")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -764,6 +1131,9 @@ def main() -> None:
     train_fwd, train_bwd = phase_train(cfg, dev, model)
     del model, step, request
     phase_train_parity(dev)
+    data = phase_data(cfg)
+    ladder = phase_ladder(dev, data)
+    cli = phase_cli(cfg, dev, data)
 
     card = card_line()
     fwd = kernel[("bfloat16", "graph", True)]
@@ -773,8 +1143,10 @@ def main() -> None:
         "source": "graphvqa_tpu_torch/csrc/gat_round.cu",
         "replaces": "graphvqa_tpu/ops/pallas/fused_dense_gat.py:44",
         "launches": train_fwd,
-        "launches_by_path": {"serve": serve_launches, "train": train_fwd},
+        "launches_by_path": {"serve": serve_launches, "train": train_fwd,
+                             "cli": cli["forward"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
+        "ladder_max_abs_err": ladder["forward"],
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": None}, {
@@ -783,8 +1155,9 @@ def main() -> None:
         "replaces": "none: XLA autodiff of "
                     "graphvqa_tpu/ops/dense.py:350 dense_gat_aggregate",
         "launches": train_bwd,
-        "launches_by_path": {"train": train_bwd},
+        "launches_by_path": {"train": train_bwd, "cli": cli["backward"]},
         "max_abs_err": max(r["max_abs_err"] for r in backward.values()),
+        "ladder_max_abs_err": ladder["backward"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": None}]}

@@ -10,25 +10,54 @@ conventions:
     aggregation;
   * ``edge_sym_sign`` is -1 for dataset-added reverse edges, else +1.
 
-The dense layout (the only one this slice ports): every graph is padded to
-exactly ``nodes_per_graph`` node rows and ``edges_per_graph`` edge rows, so
-graph g owns node rows [g*npg, (g+1)*npg) and edge rows [g*epg, (g+1)*epg),
-and flat arrays reshape to [B, npg, ...] / [B, epg, ...] for free.
+Two layouts, as in the JAX package. The dense layout (``nodes_per_graph``
+and ``edges_per_graph`` set): every graph is padded to exactly
+``nodes_per_graph`` node rows and ``edges_per_graph`` edge rows, so graph g
+owns node rows [g*npg, (g+1)*npg) and edge rows [g*epg, (g+1)*epg), and flat
+arrays reshape to [B, npg, ...] / [B, epg, ...] for free. The flat layout
+(both 0): the graphs' nodes and edges concatenated and padded to a static
+``nodes_pad`` / ``edges_pad``, padded edges pointing at the last node row;
+the collate falls back to it for a graph beyond the dense ladder.
+
+The containers also carry numpy arrays: the collate's worker processes build
+them so (``to_numpy``) and the parent wraps them back (``from_numpy``),
+zero-copy both ways.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from graphvqa_tpu_torch.core.device import DeviceLike, resolve_device
 
 
-def _move(obj, device: torch.device):
-    changes = {f.name: getattr(obj, f.name).to(device)
-               for f in dataclasses.fields(obj)
-               if isinstance(getattr(obj, f.name), torch.Tensor)}
+def _map_arrays(obj, fn, kind):
+    """``obj`` with ``fn`` applied to every field of type ``kind``
+    (nested containers included)."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, kind):
+            changes[f.name] = fn(v)
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = _map_arrays(v, fn, kind)
     return dataclasses.replace(obj, **changes)
+
+
+def _move(obj, device: torch.device):
+    return _map_arrays(obj, lambda t: t.to(device), torch.Tensor)
+
+
+def to_numpy(obj):
+    """A container of CPU tensors as the same container of numpy arrays."""
+    return _map_arrays(obj, lambda t: t.numpy(), torch.Tensor)
+
+
+def from_numpy(obj):
+    """A container of numpy arrays as the same container of CPU tensors."""
+    return _map_arrays(obj, torch.from_numpy, np.ndarray)
 
 
 @dataclasses.dataclass
@@ -70,6 +99,16 @@ class GraphBatch:
     def device(self) -> torch.device:
         return self.node_tokens.device
 
+    @property
+    def has_dense_layout(self) -> bool:
+        return self.nodes_per_graph > 0 and self.edges_per_graph > 0
+
+    def edge_graph(self) -> torch.Tensor:
+        """Graph id per edge through its source node; padded edges map to
+        ``num_graphs``."""
+        eg = self.node_graph.index_select(0, self.edge_src)
+        return torch.where(self.edge_mask, eg, self.num_graphs)
+
     def to(self, device: DeviceLike = None) -> "GraphBatch":
         return _move(self, resolve_device(device))
 
@@ -90,5 +129,4 @@ class QABatch:
     short_answer_label: torch.Tensor
 
     def to(self, device: DeviceLike = None) -> "QABatch":
-        dev = resolve_device(device)
-        return dataclasses.replace(_move(self, dev), graphs=self.graphs.to(dev))
+        return _move(self, resolve_device(device))

@@ -56,7 +56,9 @@
 //  * A graph whose rows exceed the stage (f32 graphs of more than ~18
 //    nodes, the npg=128 rung) is processed in chunks of channels: out[:,
 //    c0:c1] needs only xw[:, :, c0:c1], so no partial sum crosses a chunk.
-//    Those chunks are copied and used in turn, without overlap.
+//    Those chunks are copied and used in turn, without overlap. A chunk is
+//    a multiple of 8 channels, or of 4 where the indices and scores of the
+//    ladder's top rung (npg=512, epg=2048, f32) leave no room for 8.
 //  * Prologue in parallel: one thread per edge for the logits, a
 //    warp-shuffle max per head for the graph shift, one thread per
 //    (destination, head) for the softmax.
@@ -95,6 +97,10 @@ constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 2;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunkMin = 8;   // channels: the narrowest chunk of a big graph
+// ...unless a stage of kChunkMin channels does not fit a block beside the
+// indices and scores (f32 at the ladder's top rung, npg=512 / epg=2048):
+// then chunks are multiples of kChunkNarrow channels
+constexpr int kChunkNarrow = 4;
 constexpr int kMaxDevices = 64;
 // how a graph's xw rows reach its stage
 constexpr int kNone = 0, kBulk = 1, kCopy = 2, kChunked = 3;
@@ -131,8 +137,9 @@ struct Layout {
   }
 };
 
-__host__ __device__ size_t min_stage_bytes(int npg, int H, int C, int elem) {
-  return round16((size_t)npg * H * (C < kChunkMin ? C : kChunkMin) * elem);
+__host__ __device__ size_t min_stage_bytes(int npg, int H, int C, int elem,
+                                           int chunk = kChunkMin) {
+  return round16((size_t)npg * H * (C < chunk ? C : chunk) * elem);
 }
 
 // ---- shared-memory pipeline primitives (PTX) ----
@@ -559,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
       int cw = C;
       if (mode == kChunked) {
         cw = (int)((size_t)p.stage_bytes / ((size_t)rows * H * sizeof(T)));
-        cw -= cw % kChunkMin;
+        cw -= cw % (cw >= kChunkMin ? kChunkMin : kChunkNarrow);
       }
       const T* ins_g = reinterpret_cast<const T*>(M.ins);
       for (int c0 = 0; c0 < C; c0 += cw) {
@@ -636,10 +643,12 @@ int launch(Params p, cudaStream_t stream) {
   // shared memory that lets kBlocksPerSM blocks sit on it (or, when the
   // indices and scores leave too little of that, within a block's limit)
   const size_t want = L.fixed + round16((size_t)p.npg * p.H * p.C * sizeof(T));
-  const size_t least = min_stage_bytes(p.npg, p.H, p.C, sizeof(T));
+  size_t least = min_stage_bytes(p.npg, p.H, p.C, sizeof(T));
   size_t smem = (size_t)info.per_sm / kBlocksPerSM - (size_t)info.reserved;
   if (smem < L.fixed + least) smem = (size_t)info.optin;
   if (smem > want) smem = want;
+  if (smem < L.fixed + least)
+    least = min_stage_bytes(p.npg, p.H, p.C, sizeof(T), kChunkNarrow);
   if (smem < L.fixed + least) return (int)cudaErrorInvalidValue;
   p.stage_bytes = (int)((smem - L.fixed) & ~(size_t)15);
   // per device: the dynamic shared memory this kernel is allowed, and how
@@ -692,7 +701,8 @@ int launch_vec(int vec, const Params& p, cudaStream_t s) {
 extern "C" size_t gat_round_smem_bytes(int npg, int epg, int H, int C,
                                        int dtype) {
   const int elem = dtype == 0 ? 4 : 2;
-  return Layout(npg, epg, H, C, elem).fixed + min_stage_bytes(npg, H, C, elem);
+  return Layout(npg, epg, H, C, elem).fixed +
+         min_stage_bytes(npg, H, C, elem, kChunkNarrow);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (xw, ins and out). dl/sl int32 [B, epg]

@@ -2,7 +2,7 @@
 
 Scene graph: token embeddings summed over slots, the sign flip of
 dataset-added reverse edges, one MetaLayer round, then the per-graph
-LayerNorm with scalar affine. Question: the shared text embedding, a linear
+LayerNorm with scalar affine (either layout). Question: the shared text embedding, a linear
 projection times sqrt(d), sinusoidal positions with dropout, a post-LN
 encoder stack (dropout as ``nn/transformer.py`` places it; ``generator=None``
 is deterministic).
@@ -19,7 +19,7 @@ from graphvqa_tpu_torch.nn.embedding import PaddedEmbed
 from graphvqa_tpu_torch.nn.gnn import SceneGraphMetaLayer
 from graphvqa_tpu_torch.nn.transformer import (
     PositionalEncoding, TorchLinear, TransformerEncoder)
-from graphvqa_tpu_torch.ops.dense import dense_graph_layer_norm
+from graphvqa_tpu_torch.ops.layernorm import graph_layer_norm_any
 
 
 class GraphLayerNormParams(nn.Module):
@@ -49,7 +49,7 @@ class SceneGraphEncoder(nn.Module):
         x = torch.where(graph.node_mask[:, None], x, 0.0)
         e = torch.where(graph.edge_mask[:, None], e, 0.0)
         x_enc, e_enc = self.scene_graph_encoding_layer(graph, x, e)
-        x_enc = dense_graph_layer_norm(
+        x_enc = graph_layer_norm_any(
             graph, x_enc, self.graph_layer_norm.weight,
             self.graph_layer_norm.bias)
         return x_enc, e_enc

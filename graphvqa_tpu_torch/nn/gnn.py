@@ -1,5 +1,5 @@
-"""Scene-graph MetaLayer and the GAT engine (port of the dense branches of
-``graphvqa_tpu/nn/gnn.py``).
+"""Scene-graph MetaLayer and the GAT engine (port of ``graphvqa_tpu/nn/gnn.py``
+for the dense and the flat layout).
 
 Parameters carry the reference names: ``edge_model.edge_mlp`` /
 ``node_model.node_mlp_{1,2}`` as ``Seq(Lin, ReLU, Lin)`` (indices 0 and 2),
@@ -20,6 +20,13 @@ Training (``GATSeq.forward`` with a ``generator``): attention dropout as a
 per-edge scale drawn here and applied inside the GAT round, BatchNorm batch
 statistics between rounds (``use_running_average=False``) and dropout on
 ``h`` after each BatchNorm + ReLU, as the JAX package's ``GATSeq`` does.
+
+The flat layout (a batch beyond the dense ladder) takes the JAX package's
+flat round, plain ops under autograd: the instruction share added to every
+node's projection (no ``ins_value`` share through the row sums), scores
+from the projected rows, the segment softmax over destinations, dropout on
+the attention, the message scatter and the head mean. The MetaLayer's
+gathers and mean are index ops that serve both layouts as they are.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ from graphvqa_tpu_torch.nn.transformer import (
     TorchLinear, dropout, matmul_f32)
 from graphvqa_tpu_torch.ops import dense
 from graphvqa_tpu_torch.ops.gat_round import gat_round
+from graphvqa_tpu_torch.ops.segment import (
+    gather_nodes, scatter_edges_to_nodes, segment_softmax)
 
 
 class MLP2(nn.Sequential):
@@ -138,6 +147,37 @@ class GATLayer(nn.Module):
         out = torch.where(graph.node_mask[:, None], out + self.bias, 0.0)
         return (out, alpha) if return_alpha else out
 
+    def forward_flat(self, graph: GraphBatch, x, ins, alpha_e_base,
+                     rate=0.0, generator=None, return_alpha=False):
+        """The round on the flat layout: x [N, in_c], ins [B, ins_dim],
+        alpha_e_base [E, H] -> [N, C] float32 (and the attention [E, H]),
+        with dropout of ``rate`` on the attention drawn from ``generator``."""
+        H, C, dt = self.heads, self.out_channels, self.compute_dtype
+        N, x_dim = graph.nodes_pad, self.in_channels
+        src, dst = graph.edge_src, graph.edge_dst
+        w = self.lin_l.weight.t()                                # [in+ins, H*C]
+        ins_w = matmul_f32(ins, w[x_dim:], dt)                   # [B, H*C]
+        ins_w = torch.cat([ins_w, ins_w.new_zeros(1, H * C)])
+        xw = matmul_f32(x, w[:x_dim], dt) + ins_w.index_select(
+            0, graph.node_graph)
+        xw = xw.reshape(N, H, C).to(dt)
+        alpha_l = (xw * self.att_l).sum(-1)                      # [N, H]
+        alpha_r = (xw * self.att_r).sum(-1)
+        ins_e = matmul_f32(ins, self.edge_att()[self.edge_channels:], dt)
+        ins_e = torch.cat([ins_e, ins_e.new_zeros(1, H)])
+        alpha_e = (alpha_e_base + ins_e.index_select(0, graph.edge_graph())
+                   ).to(dt)
+        logits = (gather_nodes(alpha_l, src) + gather_nodes(alpha_r, dst)
+                  + alpha_e)
+        logits = torch.nn.functional.leaky_relu(logits, self.negative_slope)
+        alpha = segment_softmax(logits, dst, N, mask=graph.edge_mask)
+        alpha = dropout(alpha, rate, generator)
+        msgs = gather_nodes(xw, src) * alpha[..., None]
+        out = scatter_edges_to_nodes(msgs, dst, N, edge_mask=graph.edge_mask)
+        out = out.mean(dim=1) + self.bias
+        out = torch.where(graph.node_mask[:, None], out, 0.0)
+        return (out, alpha) if return_alpha else out
+
 
 class GATSeq(nn.Module):
     """Instruction-conditioned GAT rounds with skip connections and
@@ -167,20 +207,26 @@ class GATSeq(nn.Module):
         we_att_all = torch.cat([conv.edge_att()[:e_c] for conv in self.convs],
                                dim=-1)
         alpha_e_all = matmul_f32(edge_attr, we_att_all, self.compute_dtype)
-        B, _, epg = dense.dense_shapes(graph)
-        dl, sl = dense.dense_local_indices(graph)
-        mask = graph.edge_mask.reshape(B, epg).float()
+        flat = not graph.has_dense_layout
+        if not flat:
+            B, _, epg = dense.dense_shapes(graph)
+            dl, sl = dense.dense_local_indices(graph)
+            mask = graph.edge_mask.reshape(B, epg).float()
         h, alphas = x, []
         rate = self.dropout if generator is not None else 0.0
         for i, conv in enumerate(self.convs):
-            keep = None
-            if rate > 0.0:
-                keep = (torch.rand((B, epg, H), generator=generator,
-                                   device=mask.device) >= rate).float() \
-                    / (1.0 - rate)
-            out = conv(graph, h, instr_vectors[i],
-                       alpha_e_all[:, i * H:(i + 1) * H], dl, sl, mask,
-                       keep_scale=keep, return_alpha=return_alpha)
+            alpha_e = alpha_e_all[:, i * H:(i + 1) * H]
+            if flat:
+                out = conv.forward_flat(graph, h, instr_vectors[i], alpha_e,
+                                        rate, generator, return_alpha)
+            else:
+                keep = None
+                if rate > 0.0:
+                    keep = (torch.rand((B, epg, H), generator=generator,
+                                       device=mask.device) >= rate).float() \
+                        / (1.0 - rate)
+                out = conv(graph, h, instr_vectors[i], alpha_e, dl, sl, mask,
+                           keep_scale=keep, return_alpha=return_alpha)
             if return_alpha:
                 out, alpha = out
                 alphas.append(alpha)

@@ -1,9 +1,33 @@
-"""Host-side progress meters (port of ``graphvqa_tpu/train/logging_utils.py``:
-``AverageMeter`` and ``ProgressMeter``, what ``train_one_epoch`` prints)."""
+"""Host-side progress meters and the run's provenance stamp (port of
+``graphvqa_tpu/train/logging_utils.py``: ``get_sha``, ``AverageMeter`` and
+``ProgressMeter``, what ``train_one_epoch`` and ``validate`` print)."""
 from __future__ import annotations
 
 import logging
+import pathlib
+import subprocess
 from typing import List
+
+
+def get_sha() -> str:
+    """Git provenance stamp for the run log header: commit, whether the tree
+    has changes, branch ("N/A" outside a git checkout)."""
+    cwd = pathlib.Path(__file__).resolve().parent
+
+    def run(cmd):
+        return subprocess.check_output(
+            cmd, cwd=cwd, stderr=subprocess.DEVNULL).decode("ascii").strip()
+
+    sha = branch = "N/A"
+    diff = "clean"
+    try:
+        sha = run(["git", "rev-parse", "HEAD"])
+        diff = ("has uncommitted changes"
+                if run(["git", "diff-index", "HEAD"]) else "clean")
+        branch = run(["git", "rev-parse", "--abbrev-ref", "HEAD"])
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return f"sha: {sha}, status: {diff}, branch: {branch}"
 
 
 class AverageMeter:

@@ -1,22 +1,30 @@
-"""The train and greedy-eval steps (port of ``graphvqa_tpu/train/loop.py``).
+"""The train and eval loops (port of ``graphvqa_tpu/train/loop.py``).
 
 ``make_train_step(model, cfg)`` returns ``train_step(state, batch,
 generator)``: forward (dropout drawn from ``generator``, BatchNorm on batch
 statistics), the loss, the backward, one Adam step with StepLR, the running
-statistics' update and the in-step metrics, which stay on the device.
+statistics' update and the in-step metrics, which stay on the device. With
+``steps_per_dispatch=K`` it takes a list of K batches and runs K steps in
+order, reporting their metrics reduced as the JAX package's ``lax.scan``
+dispatch does (counts summed, losses meaned, the last lr); the K steps are
+exactly K single calls.
 ``make_eval_step(model, cfg)`` returns ``eval_step(batch)``: one request is
 one :class:`QABatch` on the model's device; the answer is the per-row
 signals of the JAX step (``vectors``), the greedy program tokens and the
 pooling's node attention. ``train_one_epoch`` feeds batches to a train step
-and prints meters. (The JAX package's multi-step dispatch and ``validate``
-with its result dump are not ported yet.)
+and prints meters (and can trace a window of steps with torch.profiler);
+``validate`` runs the eval step over batches, prints the accuracies and
+writes the result and attention dumps the official scorer reads.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from graphvqa_tpu_torch.config import Config
@@ -25,7 +33,8 @@ from graphvqa_tpu_torch.models.pipeline import PipelineModel
 from graphvqa_tpu_torch.train.logging_utils import AverageMeter, ProgressMeter
 from graphvqa_tpu_torch.train.losses import total_loss
 from graphvqa_tpu_torch.train.metrics import (
-    program_match_vectors, program_string_exact_match_acc, topk_accuracy)
+    program_match_vectors, program_string_exact_match_acc,
+    reduce_scanned_metrics, topk_accuracy)
 from graphvqa_tpu_torch.train.profiling import ThroughputMeter
 from graphvqa_tpu_torch.train.train_state import TrainState
 
@@ -36,9 +45,11 @@ def _teacher_inputs(batch: QABatch) -> QABatch:
                                full_answers=batch.full_answers[:, :-1])
 
 
-def make_train_step(model: PipelineModel, cfg: Config) -> Callable:
-    """One optimizer step per call. The state is updated in place (the
-    parameters, moments and running statistics are large) and returned."""
+def make_train_step(model: PipelineModel, cfg: Config,
+                    steps_per_dispatch: int = 1) -> Callable:
+    """One optimizer step per call, or K = ``steps_per_dispatch`` steps over
+    a list of K batches. The state is updated in place (the parameters,
+    moments and running statistics are large) and returned."""
     pad = cfg.model.text.pad_idx
     steps = cfg.model.max_execution_steps
     tc = cfg.train
@@ -80,7 +91,21 @@ def make_train_step(model: PipelineModel, cfg: Config) -> Callable:
                 lr=lr, edge_count=batch.graphs.edge_mask.sum())
         return state, metrics
 
-    return train_step
+    if steps_per_dispatch <= 1:
+        return train_step
+
+    def multi_step(state: TrainState, batches, generator: torch.Generator):
+        if len(batches) != steps_per_dispatch:
+            raise ValueError(f"expected {steps_per_dispatch} batches, got "
+                             f"{len(batches)}")
+        per_step: Dict[str, list] = {}
+        for batch in batches:
+            state, m = train_step(state, batch, generator)
+            for k, v in m.items():
+                per_step.setdefault(k, []).append(v)
+        return state, reduce_scanned_metrics(per_step)
+
+    return multi_step
 
 
 def make_eval_step(model: PipelineModel, cfg: Config) -> Callable:
@@ -109,11 +134,14 @@ def make_eval_step(model: PipelineModel, cfg: Config) -> Callable:
 def train_one_epoch(train_step: Callable, state: TrainState, batches,
                     generator: torch.Generator, epoch: int,
                     print_freq: int = 100, num_batches: Optional[int] = None,
-                    engine_rounds: int = 5) -> TrainState:
+                    engine_rounds: int = 5, profile_dir: Optional[str] = None,
+                    profile_steps: tuple = (5, 10)) -> TrainState:
     """Run ``train_step`` over ``batches`` ((meta, batch) pairs), printing
     the loss, the accuracies and the throughput every ``print_freq`` steps.
     The metric dicts stay on the device until a print boundary, so the host
-    does not wait for each step."""
+    does not wait for each step. ``profile_dir`` traces steps
+    [profile_steps) with torch.profiler (host and, on a GPU, the device)
+    into ``profile_dir/trace.json``, a Chrome trace."""
     losses = AverageMeter("Loss", ":.4e")
     sa = AverageMeter("Acc@Short", ":6.2f")
     pa = AverageMeter("Acc@Program", ":6.2f")
@@ -149,6 +177,7 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
     def wait_pct():
         return 100.0 * data_time / max(time.perf_counter() - epoch_t0, 1e-9)
 
+    profiler = None
     i = -1
     it = iter(batches)
     while True:
@@ -159,6 +188,12 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
             break
         data_time += time.perf_counter() - f0
         i += 1
+        if profile_dir is not None:
+            if i == profile_steps[0]:
+                profiler = _start_profiler()
+            elif i == profile_steps[1] and profiler is not None:
+                _stop_profiler(profiler, profile_dir)
+                profiler = None
         state, m = train_step(state, batch, generator)
         pending.append(m)
         if i % print_freq == 0:
@@ -166,8 +201,186 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
             progress.display(i)
             print(f"  throughput: {tput.summary()}, "
                   f"data-wait {wait_pct():.1f}%")
+    if profiler is not None:
+        _stop_profiler(profiler, profile_dir)
     drain()
     progress.display(i + 1)
     print(f"  epoch sustained: {tput.summary()}, data-wait {wait_pct():.1f}%"
           f" ({time.perf_counter() - epoch_t0:.1f}s wall)")
     return state
+
+
+def _start_profiler():
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir: str) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    prof.stop()
+    path = pathlib.Path(profile_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path / "trace.json"))
+    print(f"  profiler trace: {path / 'trace.json'}")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """On the host as numpy (bfloat16 widened to float32, exactly)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _print_qualitative(meta, batch, prog_np, sa_pred_np, text_vocab,
+                       label2ans, real, max_steps, limit=8):
+    """Decoded samples of the first batch: question, programs, answers."""
+    M = max_steps
+    programs_np = _host(batch.programs)
+    questions_np = _host(batch.questions)
+    for b in range(min(real, limit)):
+        question = (meta["questions"][b] if meta.get("questions")
+                    else text_vocab.decode(questions_np[b]))
+        gt_progs = [text_vocab.decode(programs_np[s + M * b])
+                    for s in range(M)]
+        pred_progs = [text_vocab.decode(prog_np[s + M * b])
+                      for s in range(M)]
+        gt_progs = [s for s in gt_progs if s]
+        pred_progs = [s for s in pred_progs if s]
+        answer = meta["answers"][b] if meta.get("answers") else "?"
+        pred = (label2ans[int(sa_pred_np[b])] if label2ans is not None
+                else str(int(sa_pred_np[b])))
+        print("=" * 16)
+        print("question:", question)
+        print("ground truth program:", " | ".join(gt_progs))
+        print("predicted program:  ", " | ".join(pred_progs))
+        print(f"answer: {answer}   prediction: {pred}")
+
+
+def _attention_rows(meta, node_att_np, node_graph_np, scenes, real):
+    """Per question: [x0, y0, x1, y1, att] per object, in the scene-graph
+    conversion's sorted-object-id order, boxes relative to the image."""
+    rows = []
+    for b in range(real):
+        scene = scenes.get(str(meta["image_ids"][b]), {})
+        objects = scene.get("objects", {})
+        if not objects:
+            continue
+        att = node_att_np[node_graph_np == b]
+        w = float(scene.get("width", 1)) or 1.0
+        h = float(scene.get("height", 1)) or 1.0
+        boxes = []
+        for k, oid in enumerate(sorted(objects.keys())):
+            if k >= len(att):
+                break
+            o = objects[oid]
+            boxes.append([o["x"] / w, o["y"] / h, (o["x"] + o["w"]) / w,
+                          (o["y"] + o["h"]) / h, float(att[k])])
+        rows.append({"questionId": str(meta["question_ids"][b]),
+                     "attention": boxes})
+    return rows
+
+
+def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
+             label2ans=None, dump_path: Optional[str] = None,
+             print_freq: int = 100,
+             dump_attentions_path: Optional[str] = None,
+             scenes: Optional[dict] = None,
+             max_batches: Optional[int] = None,
+             print_qualitative: bool = False) -> Dict[str, float]:
+    """Greedy-decode validation over ``batches`` ((meta, batch) pairs on the
+    model's device): short-answer, program, program-group and non-empty
+    program accuracies over the real rows of each batch (a ragged last
+    batch's repeated rows are sliced off).
+
+    ``dump_path`` writes the result dump (``{questionId: {...}}``, JSON with
+    indent 4 and sorted keys); ``dump_attentions_path`` with ``scenes`` the
+    object attention dump of the official grounding metric. ``max_batches``
+    stops early (FAST_VALIDATE); ``print_qualitative`` prints decoded samples
+    of the first batch. Single-process: the JAX package's cross-process
+    meter sync and dump gather are not ported."""
+    sa = AverageMeter("Acc@Short", ":6.2f")
+    pa = AverageMeter("Acc@Program", ":6.2f")
+    pg = AverageMeter("Acc@ProgramGroup", ":4.2f")
+    pne = AverageMeter("Acc@ProgramNonEmpty", ":4.2f")
+    progress = ProgressMeter(0, [sa, pa, pg, pne], prefix="Test: ")
+    quesid2ans, attentions_out = {}, []
+    M = cfg.model.max_execution_steps
+    eval_t0 = time.perf_counter()
+    total_real = 0
+
+    i = -1
+    for i, (meta, batch) in enumerate(batches):
+        if max_batches is not None and i >= max_batches:
+            break
+        vec, prog_tokens, node_att = eval_step(batch)
+        real = meta.get("real_count", batch.questions.shape[0])
+        total_real += real
+        sa_pred_np = _host(vec["sa_pred"])[:real]
+        sa_score_np = _host(vec["sa_score"])[:real]
+        prog_np = _host(prog_tokens)
+        labels = _host(batch.short_answer_label)[:real]
+        match = _host(vec["program_match"])[: real * M]
+        gmatch = _host(vec["program_group_match"])[:real]
+        empty = _host(vec["program_empty"])[: real * M]
+        sa.update(100.0 * float((sa_pred_np == labels).sum()) / max(real, 1),
+                  real)
+        pa.update(100.0 * float(match.sum()) / max(real * M, 1), real * M)
+        pg.update(100.0 * float(gmatch.sum()) / max(real, 1), real)
+        nt = real * M - int(empty.sum())
+        pne.update(100.0 * float(match.sum() - empty.sum()) / max(nt, 1), nt)
+
+        if i == 0 and print_qualitative and text_vocab is not None:
+            _print_qualitative(meta, batch, prog_np, sa_pred_np, text_vocab,
+                               label2ans, real, M)
+        if dump_path is not None and text_vocab is not None:
+            gt_rows = text_vocab.decode_batch(
+                _host(batch.programs)[: real * M])
+            pred_rows = text_vocab.decode_batch(prog_np[: real * M])
+            for b in range(real):
+                qid = meta["question_ids"][b]
+                gt_progs, pred_progs = [], []
+                for s in range(M):
+                    gt_sent = gt_rows[s + M * b]
+                    pred_sent = pred_rows[s + M * b]
+                    if not gt_sent and not pred_sent:
+                        continue
+                    gt_progs.append(gt_sent)
+                    pred_progs.append(pred_sent)
+                quesid2ans[str(qid)] = {
+                    "questionId": str(qid),
+                    "question": meta["questions"][b],
+                    "ground_truth_program_list": gt_progs,
+                    "predicted_program_list": pred_progs,
+                    "answer": meta["answers"][b],
+                    "prediction": label2ans[int(sa_pred_np[b])],
+                    "prediction_score": "{:.2f}".format(float(sa_score_np[b])),
+                    "types": meta["types"][b],
+                }
+        if dump_attentions_path is not None and scenes is not None:
+            attentions_out += _attention_rows(
+                meta, _host(node_att), _host(batch.graphs.node_graph), scenes,
+                real)
+        if i % print_freq == 0:
+            progress.display(i)
+    progress.display(i + 1)
+    wall = time.perf_counter() - eval_t0
+    print(f"  eval sustained: {total_real / max(wall, 1e-9):.1f} qa/s "
+          f"({total_real} questions, {wall:.1f}s wall)")
+
+    if dump_attentions_path is not None:
+        path = pathlib.Path(dump_attentions_path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(attentions_out))
+        print("Attentions Dumped!", str(path))
+    if dump_path is not None:
+        path = pathlib.Path(dump_path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(quesid2ans, indent=4, sort_keys=True))
+        print("Result Dumped!", str(path))
+    return {"short_answer_acc": sa.avg, "program_acc": pa.avg,
+            "program_group_acc": pg.avg, "program_nonempty_acc": pne.avg}

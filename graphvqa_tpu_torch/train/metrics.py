@@ -52,3 +52,29 @@ def program_string_exact_match_acc(predictions, target, padding_idx: int = 1,
     return ((match.sum(), torch.tensor(total, device=dev)),
             (group_match.sum(), torch.tensor(total // group_size, device=dev)),
             (match.sum() - n_empty, total - n_empty))
+
+
+# Count-style metric keys, summed over the K steps of one
+# ``make_train_step(steps_per_dispatch=K)`` call; the other keys are losses
+# (meaned over equal-size batches) except lr (the last step's). "total" is
+# the total loss, not a count.
+SCAN_COUNT_KEYS = frozenset({
+    "short_answer_correct", "short_answer_total", "program_correct",
+    "program_total", "program_group_correct", "program_group_total",
+    "program_nonempty_correct", "program_nonempty_total", "bitmap_tp",
+    "bitmap_pred_total", "bitmap_true_total", "edge_count"})
+
+
+def reduce_scanned_metrics(ms: dict) -> dict:
+    """Reduce a dict of per-step lists of metrics (one entry per step of a
+    K-step call) to the shape one step reports, as the JAX package reduces
+    its ``lax.scan``'s stacked metrics."""
+    out = {}
+    for key, vals in ms.items():
+        if key == "lr":
+            out[key] = vals[-1]
+        elif key in SCAN_COUNT_KEYS:
+            out[key] = torch.stack(vals).sum(dim=0)
+        else:
+            out[key] = torch.stack(vals).mean(dim=0)
+    return out

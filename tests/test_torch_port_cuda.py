@@ -140,6 +140,81 @@ def test_kernel_stage_filling_and_chunked_graphs(npg, epg, n, dtype):
         _check(args, ins, npg, epg, shift, dtype)
 
 
+# The collate's dense ladder doubles the configured padding of nodes
+# (64 -> 512) and of edges (256 -> 2048) independently: every pair is a rung.
+LADDER = [(npg, epg) for npg in (64, 128, 256, 512)
+          for epg in (256, 512, 1024, 2048)]
+
+
+def _rung_graphs(npg, epg, seed):
+    """Graphs for one rung of the ladder: one of exactly npg nodes whose
+    edges fill the rung, ragged ones, and a dummy graph at the end."""
+    rng = np.random.default_rng(seed)
+    samples = []
+    for k in range(6):
+        n = npg if k == 0 else int(rng.integers(npg // 2 + 1, npg + 1))
+        e = epg if k == 0 else int(rng.integers(min(n, epg), epg + 1))
+        src = rng.integers(0, n, size=e).astype(np.int32)
+        dst = rng.integers(0, n, size=e).astype(np.int32)
+        src[0] = dst[1] = n - 1
+        samples.append(GraphSample(
+            node_tokens=np.ones((n, 12), np.int32), edge_src=src,
+            edge_dst=dst, edge_tokens=np.ones((e, 1), np.int32),
+            edge_sym=np.zeros(e, bool)))
+    return pack_graphs_dense(samples, npg, epg, num_graphs=7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("npg,epg", LADDER)
+def test_kernel_every_ladder_rung_at_full_width(npg, epg, dtype):
+    """Every (npg, epg) rung the collate can produce, up to (512, 2048), at
+    H=4, C=300 in both dtypes: a full graph and ragged ones, the training
+    options (dropout scale, attention output) and both shifts."""
+    dev = _device()
+    args, ins = _graph_inputs(_rung_graphs(npg, epg, seed=npg + epg), 4, 300,
+                              dtype, seed=40, dev=dev)
+    _check(args, ins, npg, epg, "graph", dtype)
+    _check(args, None, npg, epg, "dst", dtype)
+    keep = _keep(args, 0.1, seed=41)
+    out, alpha = gat_round(*args, ins, npg=npg, epg=epg, keep_scale=keep,
+                           return_alpha=True)
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    want, want_alpha = gat_round_reference(
+        *f32, ins.float(), npg=npg, epg=epg, keep_scale=keep,
+        return_alpha=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want, **TOL[dtype])
+    torch.testing.assert_close(alpha.float(), want_alpha, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("npg,epg", LADDER)
+def test_backward_every_ladder_rung_at_full_width(npg, epg, dtype):
+    """The backward at every rung of the ladder, H=4, C=300, both dtypes,
+    with the dropout scale and the instruction share, both shifts."""
+    dev = _device()
+    args, ins = _graph_inputs(_rung_graphs(npg, epg, seed=npg + epg), 4, 300,
+                              dtype, seed=42, dev=dev)
+    keep = _keep(args, 0.1, seed=43)
+    for shift in ("graph", "dst"):
+        _check_backward(args, ins, keep, npg, epg, shift, dtype)
+    assert int(gat_round_backward.counter) == 7 * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("npg,epg", [(256, 1024), (512, 2048)])
+def test_top_rungs_several_graphs_per_block(npg, epg, dtype):
+    """The top rungs fit one block per SM, so with 300 full graphs every
+    block of the persistent grid takes two or three in turn and reuses its
+    stages and barriers: forward and backward against the plain versions."""
+    dev = _device()
+    args, ins = _graph_inputs(_full_graphs(npg, epg, 300, npg, seed=7), 4,
+                              300, dtype, seed=44, dev=dev)
+    keep = _keep(args, 0.1, seed=45)
+    _check(args, ins, npg, epg, "graph", dtype)
+    _check_backward(args, ins, keep, npg, epg, "graph", dtype)
+
+
 @pytest.mark.parametrize("B", [1, 7, 133, 400])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_graph_counts_around_the_persistent_grid(B, dtype):
@@ -512,3 +587,53 @@ def test_train_step_on_the_card_matches_the_cpu():
         ok = g_c.abs() > 1e-5
         torch.testing.assert_close(p_g[ok], p_c[ok], rtol=0, atol=1e-6,
                                    msg=n)
+
+
+@pytest.mark.parametrize("layout", ["dense", "flat_fallback"])
+def test_collated_batch_through_eval_and_train_steps(layout):
+    """One batch of the debug fixture collated by the port's dataset, in the
+    configured dense shape or forced into the flat layout, through the eval
+    and the train step of a --tiny float32 model on the card: the eval
+    logits within 1e-4 of the CPU's, a finite loss, and both kernels
+    launched once per round on the dense batch, never on the flat one."""
+    from graphvqa_tpu_torch.cli.train_cli import build_config, get_args_parser
+    from graphvqa_tpu_torch.data import (
+        GQADataset, build_scene_graph_vocab, build_text_vocab, tokenize)
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = _device()
+    debug = pathlib.Path(__file__).resolve().parents[1] / (
+        "graphvqa_tpu_torch/assets/debug")
+    programs = debug / "debug_programs.json"
+    tv = build_text_vocab(
+        __import__("json").loads(programs.read_text()), tokenize)
+    sgv = build_scene_graph_vocab()
+    widths = ["--nodes-per-graph", "2", "--edges-per-graph", "8",
+              "--nodes-pad", "256", "--edges-pad", "1024"] if (
+        layout == "flat_fallback") else []
+    cfg = build_config(get_args_parser().parse_args(
+        ["--data-root", ".", "--tiny", "--batch-size", "4", "--dtype",
+         "float32"] + widths), len(tv), len(sgv))
+    ds = GQADataset(programs, debug / "debug_sceneGraphs.json", tv, sgv)
+    meta, batch = next(ds.iter_batches(cfg.batch))
+    assert meta["layout"] == layout
+    rounds = cfg.model.engine.num_rounds
+    kernels = rounds if layout == "dense" else 0
+    logits = []
+    for device in ("cpu", dev):
+        model = build_model(cfg.model, device=device, seed=5)
+        f0 = gat_round.launches
+        vectors, tokens, _ = make_eval_step(model, cfg)(batch.to(device))
+        logits.append(vectors["sa_score"].cpu())
+        if device != "cpu":
+            assert gat_round.launches - f0 == kernels
+            f0, b0 = gat_round.launches, gat_round_backward.launches
+            _, m = make_train_step(model, cfg)(
+                create_train_state(model), batch.to(device),
+                torch.Generator(device=device).manual_seed(0))
+            torch.cuda.synchronize()
+            assert torch.isfinite(m["total"])
+            assert (gat_round.launches - f0,
+                    gat_round_backward.launches - b0) == (kernels, kernels)
+    torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)

@@ -220,3 +220,37 @@ def test_greedy_samplers_emit_equal_tokens(setup):
     np.testing.assert_array_equal(prog_got.numpy(), np.asarray(prog_want))
     np.testing.assert_array_equal(fa_got.numpy(), np.asarray(fa_want))
     _close(instr_got, instr_want)
+
+
+# --- the flat layout (a batch beyond the dense ladder) ----------------------
+
+@pytest.fixture(scope="module")
+def flat_setup(setup):
+    jb = random_qa_batch(seed=4, num_graphs=3, cfg=setup["cfg"], dense=False,
+                         nodes_pad=32, edges_pad=64)
+    return dict(setup, jb=jb, graph=port_graph(jb.graphs),
+                rng=np.random.default_rng(8))
+
+
+def test_flat_scene_graph_encoder(flat_setup):
+    """The MetaLayer's index ops on the flat layout, then the segment
+    LayerNorm."""
+    s = flat_setup
+    assert not s["graph"].has_dense_layout
+    test_scene_graph_encoder(s)
+
+
+def test_flat_gat_seq_folds_the_instruction_into_every_node(flat_setup,
+                                                           monkeypatch):
+    """JAX's flat round adds the instruction's projection to every node's
+    (no ins_value share through the attention row sums); the port follows
+    it on the flat layout and keeps the share on the dense one."""
+    calls = []
+    monkeypatch.setattr(pgnn, "gat_round",
+                        lambda *a, **k: calls.append(1) or None)
+    _gat_seq_case(flat_setup, jdense._SOFTMAX_SHIFT, monkeypatch)
+    assert calls == []
+
+
+def test_flat_conditional_pooling(flat_setup):
+    test_conditional_pooling(flat_setup)

@@ -129,14 +129,24 @@ def test_port_config_mirrors_jax_config():
 
 def test_port_runs_without_jax_flax_or_the_jax_package():
     code = """
+import re
 import sys
 for name in ("jax", "jaxlib", "flax", "graphvqa_tpu"):
     sys.modules[name] = None
 import numpy as np, torch
+import graphvqa_tpu_torch.cli.train_cli
+import graphvqa_tpu_torch.data.dataset
+import graphvqa_tpu_torch.data.prefetch
+import graphvqa_tpu_torch.data.synthetic
+import graphvqa_tpu_torch.eval.scorer
+import graphvqa_tpu_torch.models.pretrained
+import graphvqa_tpu_torch.ops.layernorm
 from graphvqa_tpu_torch.config import (
     Config, EngineConfig, ModelConfig, SceneGraphConfig, TextConfig,
     TransformerConfig)
-from graphvqa_tpu_torch.core import GraphSample, QABatch, pack_graphs_dense
+from graphvqa_tpu_torch.core import (
+    GraphSample, QABatch, pack_graphs, pack_graphs_dense)
+from graphvqa_tpu_torch.core.native import packer_name
 from graphvqa_tpu_torch.models.pipeline import build_model
 from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
 from graphvqa_tpu_torch.train.train_state import create_train_state
@@ -165,6 +175,13 @@ assert tokens.shape == (6, 8) and torch.isfinite(vectors["sa_score"]).all()
 state, m = make_train_step(model, Config(model=cfg))(
     create_train_state(model), batch, torch.Generator().manual_seed(0))
 assert state.step == 1 and torch.isfinite(m["total"])
+flat = QABatch(pack_graphs([sample(5, 9), sample(7, 14)], 16, 32, max_steps=3),
+               *[getattr(batch, f) for f in ("questions", "programs",
+                                             "full_answers",
+                                             "short_answer_label")])
+vectors, tokens, attention = make_eval_step(model, Config(model=cfg))(flat)
+assert tokens.shape == (6, 8) and torch.isfinite(vectors["sa_score"]).all()
+assert re.fullmatch(r"native \(.+\)|numpy", packer_name())
 assert not any(sys.modules.get(n) for n in ("jax", "flax", "graphvqa_tpu"))
 print("port ok")
 """
