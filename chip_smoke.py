@@ -53,6 +53,24 @@ Phases, in order; any failure exits non-zero:
               counted (5 forward per eval step, 5 + 5 per train step); then
               one batch forced into the flat layout through the eval step,
               card against CPU, and a train step on the card
+ 12. families the other model families at full width: gcn_config(),
+              gine_config(), lcgn_config(), onlysg_config() and gat_config()
+              with the execution engine (and its bitmap loss). Each: card
+              against CPU on B=8 in bf16 (logits, and the bitmap, as phase
+              4 holds them) and in one f32 train step (phase 8's limits);
+              make_eval_step on 1 warm-up + 3 requests and make_train_step
+              on 1 warm-up + 3 steps at B=512 (ms per step, QA/s, each
+              step's loss, peak memory, one profiled step's busy share and
+              heaviest five kernels); the GAT kernels must run 5 (eval) and
+              5 + 5 (train) times per step on onlysg and exec, never on gcn,
+              gine and lcgn. LCGN's context features come from a seeded
+              generator on the card, and from one fixed draw on both sides
+              where card and CPU are compared. Then one CLI epoch of
+              --model lcgn --use-execution-engine (2 steps of B=512 on
+              phase 9's val split, a 1-batch validation with the bitmap
+              meters)
+
+Each phase's seconds print as "[seconds] phase N".
 
 The last two lines are the card's name and power limit (nvidia-smi) and a
 {"kernels": [...]} summary before the final {"ok": true, "device": ...}.
@@ -61,6 +79,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import pathlib
@@ -86,6 +105,11 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 2.0 ** -8)}
 # (the first runs read 0.0039 on logits of |x| <= 0.68), and every argmax
 # equal unless the CPU's top two logits lie within that limit.
 PARITY_ATOL = 0.02
+# Phase 12 holds the other families to the same limit scaled by the CPU's
+# largest |logit| where that exceeds 1: bf16 rounds relative to the value,
+# and GINE's sum aggregation gives logits up to ~4, where 0.02 is under
+# two bf16 ulps (first run: gine 0.0312 at |logit| 4.03, 0.8 %, against
+# gat's 0.0039 at 0.68 and gcn's 0.0039 at 0.75, 0.5-0.6 %).
 # The backward's float32 outputs (d_alpha_l/r/e) against the plain version:
 # the same f32 sums in another order.
 BWD_F32_TOL = (1e-4, 1e-4)
@@ -96,6 +120,15 @@ BWD_F32_TOL = (1e-4, 1e-4)
 # eps, where the first step is well conditioned); running statistics to
 # rtol/atol 1e-4.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_ATOL = 1e-5, 1e-3, 1e-6
+# Phase 12's families, by norms: a ReLU whose input lies within f32
+# round-off of 0 can fall either way on the two devices, and then its unit's
+# gradient moves by its whole share (tools/family_gradient_flips.py: in lcgn
+# at |x| = 1.8e-7 and 8.5e-7 in the program decoder's FFNs, in gine at
+# 2.8e-8 in the pooling's node_nn; 5.1e-2 and 2.5e-3 of those tensors'
+# largest gradient, 1.6e-3 and 4.1e-4 of their norms; the card against
+# itself at most 1.3e-6). So each tensor's gradient within 1e-2 of its
+# norm, all gradients together within TRAIN_GRAD_TOL of theirs.
+FLIP_TENSOR_TOL = 1e-2
 DROPOUT = 0.1
 
 
@@ -467,10 +500,34 @@ def full_model(cfg, device):
     return model.to(device)
 
 
-def phase_parity(cfg, dev, model_gpu):
+def ctx_noise(cfg, batch):
+    """One fixed draw of LCGN's context features for ``batch`` (CPU)."""
+    import torch
+    return torch.randn(batch.graphs.nodes_pad,
+                       cfg.model.transformer.hidden_dim,
+                       generator=torch.Generator().manual_seed(7))
+
+
+def fixed_ctx(model, noise):
+    """An lcgn model whose context features are ``noise`` at every
+    forward, so that the card and the CPU start from the same draw (their
+    generators differ); other models as they are."""
+    if model.cfg.engine.kind == "lcgn":
+        model.lcgn_seq.forward = functools.partial(
+            model.lcgn_seq.forward,
+            x_ctx=noise.to(next(model.parameters()).device))
+    return model
+
+
+def phase_parity(cfg, dev, model_gpu, tag="parity", relative=False):
+    """The eval path on B=8, card against CPU: logits within PARITY_ATOL
+    (times max(1, the CPU's largest |logit|) with ``relative``), argmaxes
+    equal but for near ties, and the execution bitmap within the same."""
     import torch
     batch = qa_batch(cfg, 8, seed=11)
-    model_cpu = full_model(cfg, "cpu")
+    noise = ctx_noise(cfg, batch)
+    model_cpu = fixed_ctx(full_model(cfg, "cpu"), noise)
+    model_gpu = fixed_ctx(model_gpu, noise)
     t0 = time.perf_counter()
     out_gpu = model_gpu.sample(batch.to(dev))
     torch.cuda.synchronize()
@@ -480,59 +537,91 @@ def phase_parity(cfg, dev, model_gpu):
     g = out_gpu.short_answer_logits.float().cpu()
     c = out_cpu.short_answer_logits.float()
     if g.shape != (8, cfg.model.num_answers) or not torch.isfinite(g).all():
-        fail(f"card logits: shape {tuple(g.shape)} or non-finite values")
+        fail(f"{tag}: card logits: shape {tuple(g.shape)} or non-finite "
+             f"values")
+    bitmap_err = None
+    if cfg.model.use_execution_engine:
+        gb = out_gpu.execution_bitmap.float().cpu()
+        cb = out_cpu.execution_bitmap.float()
+        real = batch.graphs.node_mask
+        if not torch.isfinite(gb).all():
+            fail(f"{tag}: card bitmap not finite")
+        bitmap_err = float((gb - cb)[real].abs().max())
     err = float((g - c).abs().max())
+    limit = PARITY_ATOL * (max(1.0, float(c.abs().max())) if relative
+                           else 1.0)
     same = g.argmax(-1) == c.argmax(-1)
     top2 = c.topk(2, dim=-1).values
-    close = (top2[:, 0] - top2[:, 1]) <= PARITY_ATOL    # a near tie on the CPU
+    close = (top2[:, 0] - top2[:, 1]) <= limit          # a near tie on the CPU
     tok = float((out_gpu.program_tokens.cpu() == out_cpu.program_tokens)
                 .float().mean())
-    log(f"[parity] B=8 bf16 full width: max |logit card - cpu| = {err:.4f} "
-        f"(limit {PARITY_ATOL}), |logit| max {float(c.abs().max()):.3f}, "
-        f"argmax equal on {int(same.sum())}/8 rows ({int((~same).sum())} "
-        f"differ, {int(close.sum())} near ties), program tokens agree "
-        f"{tok:.3f}; card {t1 - t0:.2f}s cpu {t2 - t1:.2f}s")
-    if err > PARITY_ATOL or bool((~same & ~close).any()):
-        fail("card and CPU disagree on the eval path")
+    extra = ("" if bitmap_err is None else
+             f", bitmap max |card - cpu| {bitmap_err:.4f} on real nodes")
+    log(f"[{tag}] B=8 {cfg.model.dtype} full width: max |logit card - cpu| "
+        f"= {err:.4f} (limit {limit:.4f}), |logit| max "
+        f"{float(c.abs().max()):.3f}, argmax equal on {int(same.sum())}/8 "
+        f"rows ({int((~same).sum())} differ, {int(close.sum())} near ties), "
+        f"program tokens agree {tok:.3f}{extra}; card {t1 - t0:.2f}s cpu "
+        f"{t2 - t1:.2f}s")
+    if err > limit or bool((~same & ~close).any()):
+        fail(f"{tag}: card and CPU disagree on the eval path")
+    if bitmap_err is not None and bitmap_err > PARITY_ATOL:
+        fail(f"{tag}: card and CPU bitmaps differ by {bitmap_err:.4f}")
     del model_cpu
 
 
-def phase_serve(cfg, dev, model):
+def gat_rounds(cfg):
+    """GAT-kernel launches per step (forward, or backward) of a config:
+    one per round on the gat engines (gat, and onlysg's "none"), none on
+    gcn, gine and lcgn."""
+    e = cfg.model.engine
+    return e.num_rounds if e.kind in ("gat", "none") else 0
+
+
+def phase_serve(cfg, dev, model, tag="serve", ctx=None):
+    """make_eval_step on 1 warm-up and 3 counted B=512 requests (counts set
+    to 0 just before them and read just after); ``ctx`` is LCGN's
+    generator."""
     import torch
     from graphvqa_tpu_torch.ops.gat_round import gat_round
     from graphvqa_tpu_torch.train.loop import make_eval_step
     step = make_eval_step(model, cfg)
     requests = [qa_batch(cfg, B, seed=100 + i).to(dev) for i in range(4)]
-    step(requests[0])                                  # warm-up request
+    step(requests[0], ctx)                             # warm-up request
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     gat_round.launches = 0
     times, outs = [], []
     for req in requests[1:]:
         t0 = time.perf_counter()
-        out = step(req)
+        out = step(req, ctx)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         outs.append(out)
     launches = gat_round.launches
-    rounds = cfg.model.engine.num_rounds
-    if launches != rounds * len(times):
-        fail(f"gat_round launched {launches} times on the main path, "
-             f"expected {rounds} x {len(times)}")
+    if launches != gat_rounds(cfg) * len(times):
+        fail(f"{tag}: gat_round launched {launches} times in {len(times)} "
+             f"requests, expected {gat_rounds(cfg)} per request")
     V = cfg.model.text.vocab_size
     for vectors, tokens, attention in outs:
         if not (torch.isfinite(vectors["sa_score"]).all()
                 and torch.isfinite(attention).all()):
-            fail("non-finite eval outputs")
+            fail(f"{tag}: non-finite eval outputs")
         if tokens.shape != (B * cfg.model.max_execution_steps,
                             cfg.model.program_decode_len):
-            fail(f"program tokens shape {tuple(tokens.shape)}")
+            fail(f"{tag}: program tokens shape {tuple(tokens.shape)}")
         if int(tokens.min()) < 0 or int(tokens.max()) >= V:
-            fail("program tokens out of the vocabulary")
+            fail(f"{tag}: program tokens out of the vocabulary")
         if vectors["sa_pred"].shape != (B,) or attention.shape != (B * NPG,):
-            fail("eval vector shapes")
+            fail(f"{tag}: eval vector shapes")
+        bitmap = vectors.get("execution_bitmap")
+        if cfg.model.use_execution_engine and (
+                bitmap is None or bitmap.shape != (
+                    B * NPG, cfg.model.max_execution_steps)
+                or not torch.isfinite(bitmap).all()):
+            fail(f"{tag}: execution bitmap missing, misshapen or not finite")
     ms = [t * 1e3 for t in times]
-    log(f"[serve] {len(times)} requests of B={B}: ms/step "
+    log(f"[{tag}] {len(times)} requests of B={B}: ms/step "
         f"{', '.join(f'{m:.2f}' for m in ms)} (mean {statistics.mean(ms):.2f}),"
         f" QA/s {B / statistics.mean(times):.1f}, gat_round launches "
         f"{launches}, peak memory "
@@ -545,8 +634,6 @@ def phase_profile(model, step, request):
     stage times (each stage ends in a synchronize), then one step under
     torch.profiler for the device's busy share and its heaviest kernels."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     emb, g = model.text_vocab_embedding, request.graphs
 
     def timed(fn):
@@ -576,37 +663,44 @@ def phase_profile(model, step, request):
         f"{t_gat:.2f}, pooling + classifier {t_head:.2f}, full-answer "
         f"decoder {t_fa:.2f}")
 
+    profiled_step(lambda: step(request), "profile", 10)
+
+
+def profiled_step(fn, tag, top):
+    """One call of ``fn`` under torch.profiler: wall time, the device's
+    busy share and its ``top`` heaviest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(request)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [ev for ev in prof.events()
                if ev.device_type == DeviceType.CUDA]
     if not kernels:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[{tag}] the profiler recorded no device time: not measured")
         return
     busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
     by_name = {}
     for ev in kernels:
         n, t = by_name.get(ev.name, (0, 0.0))
         by_name[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
-    log(f"[profile] one step: wall {wall_us / 1e3:.2f} ms (profiled), "
+    log(f"[{tag}] one profiled step: wall {wall_us / 1e3:.2f} ms, "
         f"{len(kernels)} device kernels, device busy {busy_us / 1e3:.2f} ms "
         f"= {100 * busy_us / wall_us:.1f}% of wall")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
-        log(f"[profile]   {t / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"[{tag}]   {t / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
 
 
-def phase_train(cfg, dev, model):
-    """The full-width train step on B=512: 1 warm-up and 5 counted steps
-    (counts set to 0 just before them and read just after), then one
-    profiled step."""
+def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
+    """The full-width train step on B=512: 1 warm-up and ``steps`` counted
+    steps (counts set to 0 just before them and read just after), then one
+    profiled step. ``ctx`` is LCGN's generator."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
     from graphvqa_tpu_torch.train.loop import make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
@@ -618,79 +712,66 @@ def phase_train(cfg, dev, model):
     batch = qa_batch(cfg, B, seed=200).to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    step(state, batch, gen)                             # warm-up step
+    step(state, batch, gen, ctx)                        # warm-up step
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     gat_round.launches = gat_round_backward.launches = 0
     times, losses = [], []
-    for _ in range(5):
+    for _ in range(steps):
         t0 = time.perf_counter()
-        state, m = step(state, batch, gen)
+        state, m = step(state, batch, gen, ctx)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["total"]))
     fwd, bwd = gat_round.launches, gat_round_backward.launches
-    rounds = cfg.model.engine.num_rounds
+    rounds = gat_rounds(cfg)
     if (fwd, bwd) != (rounds * len(times), rounds * len(times)):
-        fail(f"train path launched gat_round {fwd} and gat_round_backward "
-             f"{bwd} times in {len(times)} steps, expected {rounds} each "
-             f"per step")
+        fail(f"{tag}: gat_round {fwd} and gat_round_backward {bwd} launches "
+             f"in {len(times)} steps, expected {rounds} each per step")
     if not all(map(math.isfinite, losses)):
-        fail(f"non-finite training loss: {losses}")
+        fail(f"{tag}: non-finite training loss: {losses}")
+    parts = ", ".join(f"{k} {float(v):.5f}" for k, v in m.items()
+                      if k in ("short_answer", "program", "execution_bitmap"))
     ms = [t * 1e3 for t in times]
-    log(f"[train] {len(times)} steps of B={B} at full width (dropout "
+    log(f"[{tag}] {len(times)} steps of B={B} at full width (dropout "
         f"{cfg.model.transformer.dropout}/{cfg.model.engine.dropout}/"
         f"{cfg.model.classifier_dropout}, lr {tc.lr}): ms/step "
         f"{', '.join(f'{v:.2f}' for v in ms)} (mean {statistics.mean(ms):.2f}"
         f", warm-up {warm * 1e3:.0f}), QA/s {B / statistics.mean(times):.1f}"
-        f"; loss per step {', '.join(f'{v:.5f}' for v in losses)}; launches "
-        f"per step gat_round {fwd // len(times)}, gat_round_backward "
-        f"{bwd // len(times)}; peak memory "
+        f"; loss per step {', '.join(f'{v:.5f}' for v in losses)} (last: "
+        f"{parts}); launches per step gat_round {fwd // len(times)}, "
+        f"gat_round_backward {bwd // len(times)}; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, gen)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [ev for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA]
-    if not kernels:
-        log("[train] the profiler recorded no device time: not measured")
-        return fwd, bwd
-    busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
-    by_name = {}
-    for ev in kernels:
-        n, t = by_name.get(ev.name, (0, 0.0))
-        by_name[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
-    log(f"[train] one profiled step: wall {wall_us / 1e3:.2f} ms, "
-        f"{len(kernels)} device kernels, device busy {busy_us / 1e3:.2f} ms "
-        f"= {100 * busy_us / wall_us:.1f}% of wall")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        log(f"[train]   {t / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
+    profiled_step(lambda: step(state, batch, gen, ctx), tag, top)
     return fwd, bwd
 
 
-def phase_train_parity(dev):
+def phase_train_parity(dev, base=None, tag="train-parity",
+                       flip_robust=False):
     """One float32 train step of the full-width model (dropout 0) on B=8,
-    card against CPU, from the same weights."""
+    card against CPU, from the same weights (gat_config() unless ``base``
+    is given; LCGN's context features one fixed draw on both sides).
+    ``flip_robust`` holds the gradients by norms, not element by element
+    (FLIP_TENSOR_TOL); updated parameters are compared where the two
+    gradients agree (element by element; with ``flip_robust``, to 1e-3 of
+    each element)."""
     import dataclasses
     import torch
     from graphvqa_tpu_torch.config import gat_config
     from graphvqa_tpu_torch.train.loop import make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
-    base = gat_config()
+    base = base or gat_config()
     mc = base.model
     cfg = dataclasses.replace(base, model=dataclasses.replace(
         mc, dtype="float32", classifier_dropout=0.0,
         transformer=dataclasses.replace(mc.transformer, dropout=0.0),
         engine=dataclasses.replace(mc.engine, dropout=0.0)))
     batch = qa_batch(cfg, 8, seed=21)
+    noise = ctx_noise(cfg, batch)
     runs = {}
     for device in ("cpu", dev):
-        model = full_model(cfg, device)
+        model = fixed_ctx(full_model(cfg, device), noise)
         state = create_train_state(model, lr=cfg.train.lr)
         t0 = time.perf_counter()
         _, m = make_train_step(model, cfg)(
@@ -708,38 +789,72 @@ def phase_train_parity(dev):
         del model, state
     cpu, gpu = runs["cpu"], runs[str(dev)]
     loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    grad_err = near_zero_err = param_err = stat_err = 0.0
+    grad_err = near_zero_err = param_err = stat_err = worst_norm = 0.0
+    sq_diff = sq_ref = 0.0
+    n_over = n_all = n_compared = 0
     for n, gc in cpu["grads"].items():
+        d = gpu["grads"][n] - gc
         scale = float(gc.abs().max())
-        err = float((gpu["grads"][n] - gc).abs().max())
+        err = float(d.abs().max())
+        over = d.abs() > TRAIN_GRAD_TOL * scale + 1e-7
+        n_over, n_all = n_over + int(over.sum()), n_all + gc.numel()
+        sq_diff += float(d.norm()) ** 2
+        sq_ref += float(gc.norm()) ** 2
         if scale > 1e-5:
             grad_err = max(grad_err, err / scale)
+            rel_norm = float(d.norm() / gc.norm())
+            worst_norm = max(worst_norm, rel_norm)
         else:       # a gradient that is 0 in exact arithmetic: round-off
             near_zero_err = max(near_zero_err, err)
-        if err > TRAIN_GRAD_TOL * scale + 1e-7:
-            fail(f"train step card vs CPU: gradient of {n} differs by "
+        if flip_robust:
+            if scale > 1e-5 and rel_norm > FLIP_TENSOR_TOL:
+                fail(f"{tag}: train step card vs CPU: gradient of {n} differs "
+                     f"by {rel_norm:.3e} of its norm")
+            if scale <= 1e-5 and bool(over.any()):
+                fail(f"{tag}: train step card vs CPU: round-off gradient of "
+                     f"{n} differs by {err:.3e}")
+        elif err > TRAIN_GRAD_TOL * scale + 1e-7:
+            fail(f"{tag}: train step card vs CPU: gradient of {n} differs by "
                  f"{err:.3e} (scale {scale:.3e})")
-        conditioned = gc.abs() > 1e-5
+        # updates are compared where the two gradients agree (with
+        # flip_robust, to 1e-3 of the element itself: Adam's first step
+        # turns a small gradient's relative error into the update's)
+        agree = (d.abs() <= TRAIN_GRAD_TOL * gc.abs()) if flip_robust \
+            else ~over
+        conditioned = (gc.abs() > 1e-5) & agree
+        n_compared += int(conditioned.sum())
         perr = float((gpu["params"][n] - cpu["params"][n])[conditioned]
                      .abs().max()) if bool(conditioned.any()) else 0.0
         param_err = max(param_err, perr)
         if perr > TRAIN_PARAM_ATOL:
-            fail(f"train step card vs CPU: updated {n} differs by {perr:.3e}")
+            fail(f"{tag}: train step card vs CPU: updated {n} differs by "
+                 f"{perr:.3e}")
+    global_norm = math.sqrt(sq_diff / sq_ref)
+    if flip_robust and global_norm > TRAIN_GRAD_TOL:
+        fail(f"{tag}: train step card vs CPU: gradients differ by "
+             f"{global_norm:.3e} of their norm")
     for n, sc in cpu["stats"].items():
         err = float((gpu["stats"][n] - sc).abs().max())
         stat_err = max(stat_err, err)
         if not torch.allclose(gpu["stats"][n], sc, rtol=1e-4, atol=1e-4):
-            fail(f"train step card vs CPU: running statistic {n} differs "
-                 f"by {err:.3e}")
+            fail(f"{tag}: train step card vs CPU: running statistic {n} "
+                 f"differs by {err:.3e}")
     if not math.isfinite(gpu["loss"]) or loss_err > TRAIN_LOSS_RTOL:
-        fail(f"train step card vs CPU: loss {gpu['loss']} vs {cpu['loss']}")
-    log(f"[train-parity] f32 B=8 full width, one step: loss card "
+        fail(f"{tag}: train step card vs CPU: loss {gpu['loss']} vs "
+             f"{cpu['loss']}")
+    log(f"[{tag}] f32 B=8 full width, one step: loss card "
         f"{gpu['loss']:.7f} cpu {cpu['loss']:.7f} (rel {loss_err:.2e}, "
         f"limit {TRAIN_LOSS_RTOL}); worst gradient diff {grad_err:.2e} of "
-        f"its tensor's scale where that exceeds 1e-5 (limit "
-        f"{TRAIN_GRAD_TOL}), {near_zero_err:.2e} absolute in the others "
+        f"its tensor's scale where that exceeds 1e-5 ("
+        + (f"not gated: {n_over} of {n_all} elements beyond {TRAIN_GRAD_TOL}"
+           f" of their tensor's scale; worst tensor {worst_norm:.2e} of its "
+           f"norm (limit {FLIP_TENSOR_TOL}), all gradients {global_norm:.2e}"
+           f" of their norm (limit {TRAIN_GRAD_TOL})" if flip_robust else
+           f"limit {TRAIN_GRAD_TOL}")
+        + f"), {near_zero_err:.2e} absolute in the others "
         f"(limit 1e-7 beyond the relative one); updated params "
-        f"{param_err:.2e} where |grad| > 1e-5 (limit {TRAIN_PARAM_ATOL}); "
+        f"{param_err:.2e} where |grad| > 1e-5 and the gradients agree "
+        f"({n_compared} elements; limit {TRAIN_PARAM_ATOL}); "
         f"running stats {stat_err:.2e}; card {gpu['seconds']:.2f}s cpu "
         f"{cpu['seconds']:.2f}s")
 
@@ -1087,6 +1202,90 @@ def phase_flat(cfg, dev, data):
         f"{loss:.5f}; no kernel launched (the flat round is plain ops)")
 
 
+FAMILIES = ("gcn", "gine", "lcgn", "onlysg", "exec")
+
+
+def family_config(name):
+    """The named configuration: a CONFIG_FACTORY entry, or "exec":
+    gat_config() with the execution engine and its bitmap loss."""
+    import dataclasses
+    from graphvqa_tpu_torch.config import CONFIG_FACTORY
+    if name != "exec":
+        return CONFIG_FACTORY[name]()
+    c = CONFIG_FACTORY["gat"]()
+    return dataclasses.replace(
+        c, model=dataclasses.replace(c.model, use_execution_engine=True),
+        train=dataclasses.replace(c.train, use_bitmap_loss=True))
+
+
+def phase_families(dev, data):
+    """Phase 12: every other model family at full width (gcn, gine, lcgn,
+    onlysg, and gat with the execution engine): card against CPU in bf16
+    and in one f32 train step, then the eval and train steps at B=512 with
+    their GAT-kernel launch counts; then one CLI epoch of lcgn with the
+    execution engine."""
+    import torch
+    launches = {}
+    for name in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = family_config(name)
+        tag = f"families {name}"
+        model = full_model(cfg, dev)
+        log(f"[{tag}] engine {cfg.model.engine.kind}, execution engine "
+            f"{cfg.model.use_execution_engine}, losses: program "
+            f"{cfg.train.use_program_loss}, bitmap {cfg.train.use_bitmap_loss};"
+            f" params {sum(p.numel() for p in model.parameters())} dtype "
+            f"{cfg.model.dtype}")
+        phase_parity(cfg, dev, model, tag=tag, relative=True)
+        del model
+        phase_train_parity(dev, cfg, tag=tag, flip_robust=True)
+        model = full_model(cfg, dev)
+        ctx = torch.Generator(device=dev).manual_seed(2)
+        serve, _, _ = phase_serve(cfg, dev, model, tag=tag, ctx=ctx)
+        fwd, bwd = phase_train(cfg, dev, model, steps=3, tag=tag, ctx=ctx,
+                               top=5)
+        launches[name] = dict(forward=serve + fwd, backward=bwd)
+        log(f"[{tag}] gat_round launches: serve {serve} (3 requests), train "
+            f"{fwd} + backward {bwd} (3 steps); {time.perf_counter() - t0:.1f}s")
+        del model
+        torch.cuda.empty_cache()
+    phase_cli_lcgn(data)
+    return launches
+
+
+def phase_cli_lcgn(data):
+    """The CLI with --model lcgn --use-execution-engine at full width: one
+    epoch of 2 steps (the 1,024 val questions at B=512) and a 1-batch
+    validation: LCGN's generator, the program loss, the bitmap BCE and the
+    bitmap meters end to end."""
+    t0 = time.perf_counter()
+    root, out = data["data"], SMOKE_DIR / "cli_lcgn"
+    stdout, secs = _run_cli([
+        "graphvqa_tpu_torch.cli.train_cli", "--model", "lcgn",
+        "--use-execution-engine", "--data-root", str(root), "--split",
+        "val_balanced", "--val-split", "val_balanced", "--batch-size", str(B),
+        "--epochs", "1", "--validate-every", "1", "--fast-validate", "1",
+        "--print-freq", "1", "--output_dir", str(out)], "cli_lcgn_exec")
+    losses = [float(v) for v in re.findall(r"Loss (\S+) \(", stdout)]
+    if not losses or not all(map(math.isfinite, losses)):
+        fail(f"lcgn CLI: training losses {losses}")
+    f_tr, b_tr = (int(v) for v in _last_match(
+        r"kernel launches \(train epoch 0\): gat_round (\d+), "
+        r"gat_round_backward (\d+)", stdout, "train launches"))
+    if (f_tr, b_tr) != (0, 0):
+        fail(f"lcgn CLI: the GAT kernels launched {f_tr} / {b_tr} times")
+    res = _last_match(r"val_balanced (\{.*'bitmap_recall'.*\})", stdout,
+                      "validation result with the bitmap meters")
+    qa_s = _last_match(r"epoch sustained: ([\d.]+) qa/s", stdout,
+                       "epoch summary")
+    if not (out / "ckpt" / "ckpt_0.pt").exists():
+        fail("lcgn CLI: no checkpoint")
+    log(f"[families cli] lcgn + execution engine, B={B}: losses "
+        f"{', '.join(f'{v:.5f}' for v in losses)}, epoch {qa_s} QA/s, "
+        f"validation {res}, GAT launches 0 / 0; process {secs:.1f}s, phase "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -1113,27 +1312,47 @@ def main() -> None:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    clock = [time.perf_counter()]
+
+    def done(phase):
+        now = time.perf_counter()
+        log(f"[seconds] phase {phase}: {now - clock[0]:.1f}s")
+        clock[0] = now
+
     lib = gr.load_library()
     log(f"[build] nvcc {lib.build_seconds:.1f}s (in parallel) -> "
         f"{', '.join(str(p) for p in lib.paths.values())}")
     for line in lib.log.strip().splitlines():
         if any(w in line for w in ("registers", "spill", "error", "smem")):
             log(f"[build] {line.strip()}")
+    done("1 build")
     kernel = phase_kernel(dev)
+    done("2 kernel")
     backward = phase_backward(dev)
+    done("3 backward")
     cfg = gat_config()
     model = full_model(cfg, dev)
     log(f"[model] gat_config() params "
         f"{sum(p.numel() for p in model.parameters())} dtype {cfg.model.dtype}")
     phase_parity(cfg, dev, model)
+    done("4 parity")
     serve_launches, step, request = phase_serve(cfg, dev, model)
+    done("5 serve")
     phase_profile(model, step, request)
+    done("6 profile")
     train_fwd, train_bwd = phase_train(cfg, dev, model)
+    done("7 train")
     del model, step, request
     phase_train_parity(dev)
+    done("8 train-parity")
     data = phase_data(cfg)
+    done("9 data")
     ladder = phase_ladder(dev, data)
+    done("10 ladder")
     cli = phase_cli(cfg, dev, data)
+    done("11 cli")
+    families = phase_families(dev, data)
+    done("12 families")
 
     card = card_line()
     fwd = kernel[("bfloat16", "graph", True)]
@@ -1144,7 +1363,9 @@ def main() -> None:
         "replaces": "graphvqa_tpu/ops/pallas/fused_dense_gat.py:44",
         "launches": train_fwd,
         "launches_by_path": {"serve": serve_launches, "train": train_fwd,
-                             "cli": cli["forward"]},
+                             "cli": cli["forward"],
+                             "onlysg": families["onlysg"]["forward"],
+                             "exec": families["exec"]["forward"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ladder_max_abs_err": ladder["forward"],
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
@@ -1155,7 +1376,9 @@ def main() -> None:
         "replaces": "none: XLA autodiff of "
                     "graphvqa_tpu/ops/dense.py:350 dense_gat_aggregate",
         "launches": train_bwd,
-        "launches_by_path": {"train": train_bwd, "cli": cli["backward"]},
+        "launches_by_path": {"train": train_bwd, "cli": cli["backward"],
+                             "onlysg": families["onlysg"]["backward"],
+                             "exec": families["exec"]["backward"]},
         "max_abs_err": max(r["max_abs_err"] for r in backward.values()),
         "ladder_max_abs_err": ladder["backward"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],

@@ -19,11 +19,14 @@ reads.
 It runs on the GPU (``--device cuda``, the default; raises without one) or,
 when asked, on the CPU (``--device cpu``). ``--workers N`` collates in N
 forked processes (data/dataset.py): they fork after the model is on the
-card and never touch it, returning numpy arrays. ``--compile-cache`` and
-``--prng`` name JAX machinery and do nothing here. Features not ported yet
-exit with an error that names their ROADMAP item: ``--model`` other than
-gat and ``--use-execution-engine`` (Queue 1 item 5), ``--data-parallel`` or
-``--edge-parallel`` above 1 (item 6).
+card and never touch it, returning numpy arrays. ``--model`` takes every
+family of the JAX package (gat, gcn, gine, lcgn, onlysg), each with its
+configuration's losses, and ``--use-execution-engine`` adds the recurrent
+execution engine with its bitmap loss and meters; LCGN draws its context
+features from a generator seeded with ``--seed`` + 2. ``--compile-cache``
+and ``--prng`` name JAX machinery and do nothing here. ``--data-parallel``
+or ``--edge-parallel`` above 1 (multi-GPU, not ported yet) exits with an
+error that names its ROADMAP item (Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -118,7 +121,8 @@ def get_args_parser():
                    help="engine message-passing rounds (default: the "
                         "config's, 5)")
     p.add_argument("--use-execution-engine", action="store_true",
-                   help="the recurrent execution engine (not ported yet)")
+                   help="add the recurrent execution engine and its bitmap "
+                        "loss")
     p.add_argument("--compile-cache", default="", metavar="DIR",
                    help="JAX's persistent compilation cache; does nothing "
                         "here")
@@ -145,18 +149,9 @@ def get_args_parser():
 
 def _check_ported(args) -> None:
     """Exit with the ROADMAP item of a feature that is not ported yet."""
-    missing = []
-    if args.model != "gat":
-        missing.append(f"--model {args.model}: the engine variants are "
-                       "ROADMAP.md Queue 1 item 5")
-    if args.use_execution_engine:
-        missing.append("--use-execution-engine: the execution engine is "
-                       "ROADMAP.md Queue 1 item 5")
     if args.data_parallel > 1 or args.edge_parallel > 1:
-        missing.append("--data-parallel/--edge-parallel above 1: multi-GPU "
-                       "is ROADMAP.md Queue 1 item 6")
-    if missing:
-        raise SystemExit("not ported yet: " + "; ".join(missing))
+        raise SystemExit("not ported yet: --data-parallel/--edge-parallel "
+                         "above 1: multi-GPU is ROADMAP.md Queue 1 item 6")
     for flag, given in (("--compile-cache", args.compile_cache),
                         ("--prng", args.prng)):
         if given:
@@ -198,14 +193,15 @@ def _load_glove(args, text_vocab, sg_vocab, out_dir):
 
 
 def build_config(args, text_vocab_size: int, sg_vocab_size: int):
-    """The port's Config for these flags (gat_config() with the overrides
-    the JAX CLI applies)."""
-    from graphvqa_tpu_torch.config import BatchConfig, gat_config
-    cfg = gat_config()
+    """The port's Config for these flags (``--model``'s configuration with
+    the overrides the JAX CLI applies)."""
+    from graphvqa_tpu_torch.config import BatchConfig, CONFIG_FACTORY
+    cfg = CONFIG_FACTORY[args.model]()
     model_cfg = dataclasses.replace(
         cfg.model,
         text=dataclasses.replace(cfg.model.text, vocab_size=text_vocab_size),
         scene=dataclasses.replace(cfg.model.scene, vocab_size=sg_vocab_size),
+        use_execution_engine=args.use_execution_engine,
         **({"dtype": args.dtype} if args.dtype else {}))
     if args.rounds:
         model_cfg = dataclasses.replace(model_cfg, engine=dataclasses.replace(
@@ -241,6 +237,8 @@ def build_config(args, text_vocab_size: int, sg_vocab_size: int):
             seed=args.seed, print_freq=args.print_freq,
             output_dir=str(args.output_dir),
             validate_every=args.validate_every,
+            **({"use_bitmap_loss": True} if args.use_execution_engine
+               else {}),
             **({} if args.program_loss == "default" else
                {"use_program_loss": args.program_loss == "on"})))
 
@@ -341,6 +339,8 @@ def main(args):
         state, start_epoch = restore_checkpoint(args.resume, state)
         print(f"resumed from {args.resume} at epoch {start_epoch}")
     generator = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    # LCGN's context features, seeded as the JAX CLI seeds 'lcgn_ctx'
+    ctx_generator = torch.Generator(device=dev).manual_seed(args.seed + 2)
     fast_validate = args.fast_validate or None
     eval_step = make_eval_step(model, cfg)
     val_ds = GQADataset(programs_path(args.val_split),
@@ -366,7 +366,8 @@ def main(args):
                     str(out_dir / f"dump_attentions{suffix}.json")
                     if args.dump_attentions else None),
                 scenes=ds.sg_data if args.dump_attentions else None,
-                max_batches=fast_validate, print_qualitative=True)
+                max_batches=fast_validate, print_qualitative=True,
+                generator=ctx_generator)
             print(split, res)
             _print_launches(f"evaluate {split}", before)
         return
@@ -409,17 +410,20 @@ def main(args):
             num_batches=steps_per_epoch,
             engine_rounds=cfg.model.engine.num_rounds,
             profile_dir=((args.profile_dir or None)
-                         if epoch == start_epoch else None))
+                         if epoch == start_epoch else None),
+            ctx_generator=ctx_generator)
         epoch_stats = {k: collate_stats[k] - stats_before[k]
                        for k in collate_stats}
         print(f"collate layout stats (this epoch): {epoch_stats}")
         _print_launches(f"train epoch {epoch}", before)
         if (epoch + 1) % args.validate_every == 0:
             before = _launches()
-            validate(eval_step, eval_batches(val_ds), cfg,
-                     text_vocab=text_vocab, label2ans=label2ans,
-                     print_freq=args.print_freq, max_batches=fast_validate,
-                     print_qualitative=True)
+            res = validate(eval_step, eval_batches(val_ds), cfg,
+                           text_vocab=text_vocab, label2ans=label2ans,
+                           print_freq=args.print_freq,
+                           max_batches=fast_validate, print_qualitative=True,
+                           generator=ctx_generator)
+            print(args.val_split, res)
             _print_launches(f"validate epoch {epoch}", before)
         save_checkpoint(out_dir / "ckpt", state)
         # archival copies at the lr-drop and 100-epoch marks

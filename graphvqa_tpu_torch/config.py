@@ -2,8 +2,8 @@
 
 Kept: the model tree, the static batch shape and the trainer's settings
 (the JAX package's mesh layout is not ported yet). Field names, defaults and
-``gat_config()`` match the JAX package, so a config made for one side reads
-the same on the other.
+the factories of ``CONFIG_FACTORY`` match the JAX package, so a config made
+for one side reads the same on the other.
 """
 from __future__ import annotations
 
@@ -73,6 +73,10 @@ class ModelConfig:
     # float32 (the JAX package's shipping default is bfloat16 too)
     dtype: str = "bfloat16"
 
+    def replace_engine(self, kind: str) -> "ModelConfig":
+        return dataclasses.replace(
+            self, engine=dataclasses.replace(self.engine, kind=kind))
+
 
 @dataclasses.dataclass(frozen=True)
 class BatchConfig:
@@ -116,3 +120,38 @@ class Config:
 
 def gat_config() -> Config:
     return Config()
+
+
+def _baseline(kind: str) -> Config:
+    """A baseline engine; the baselines train the program loss too."""
+    c = Config()
+    return dataclasses.replace(
+        c, model=c.model.replace_engine(kind),
+        train=dataclasses.replace(c.train, use_program_loss=True))
+
+
+def gcn_config() -> Config:
+    return _baseline("gcn")
+
+
+def gine_config() -> Config:
+    return _baseline("gine")
+
+
+def lcgn_config() -> Config:
+    return _baseline("lcgn")
+
+
+def onlysg_config() -> Config:
+    """The ablation: the GAT engine with the question memory zeroed."""
+    c = Config()
+    return dataclasses.replace(c, model=c.model.replace_engine("none"))
+
+
+CONFIG_FACTORY = {
+    "gat": gat_config,
+    "gcn": gcn_config,
+    "gine": gine_config,
+    "lcgn": lcgn_config,
+    "onlysg": onlysg_config,
+}

@@ -1,10 +1,11 @@
 """Dense per-graph graph ops as plain torch index ops.
 
-Port of the ``graphvqa_tpu/ops/dense.py`` subset that the eval path runs. The
-JAX package writes every gather and scatter as a one-hot incidence matmul, a
-TPU workaround for serialized row scatters; on a GPU they are plain
-``index_select`` / ``index_add_``. The semantics are kept: padded edges give
-and receive nothing, sums accumulate in float32 and return the input dtype.
+Port of ``graphvqa_tpu/ops/dense.py``. The JAX package writes every gather
+and scatter as a one-hot incidence matmul, a TPU workaround for serialized
+row scatters; on a GPU they are plain ``index_select`` / ``index_add_``. The
+semantics are kept: padded edges give and receive nothing, sums accumulate
+in float32 and return the input dtype, and the destination softmax and the
+weighted scatter round where the JAX functions round.
 
 The GAT round itself is :func:`graphvqa_tpu_torch.ops.gat_round.gat_round`.
 """
@@ -84,6 +85,63 @@ def broadcast_to_edges(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:
     B, _, epg = dense_shapes(graph)
     D = values.shape[-1]
     return values[:, None, :].expand(B, epg, D).reshape(B * epg, D)
+
+
+def dense_segment_softmax(graph: GraphBatch,
+                          logits: torch.Tensor) -> torch.Tensor:
+    """Softmax of per-edge logits [E, H] over each destination's in-edges
+    -> [E, H] in the logits' dtype (torch_geometric.utils.softmax; masked
+    edges 0). The stabilizing shift is ``SOFTMAX_SHIFT``'s: one max per
+    graph ('graph', the default) or per destination ('dst'), detached as
+    JAX's ``stop_gradient`` detaches it; the denominator sums in float32."""
+    B, _, epg = dense_shapes(graph)
+    H = logits.shape[-1]
+    m = graph.edge_mask[:, None]
+    lg = torch.where(m, logits, NEG_INF)
+    if SOFTMAX_SHIFT == "graph":
+        seg_max = lg.detach().reshape(B, epg, H).amax(dim=1).clamp(min=NEG_INF)
+        max_e = seg_max[:, None, :].expand(B, epg, H).reshape(B * epg, H)
+    else:
+        idx = graph.edge_dst[:, None].expand(-1, H)
+        seg_max = lg.new_full((graph.nodes_pad, H), NEG_INF).scatter_reduce(
+            0, idx, lg.detach(), reduce="amax")
+        max_e = seg_max.index_select(0, graph.edge_dst)
+    shifted = torch.where(m, lg - max_e, 0.0)
+    # minimum, not clamp: its derivative at the tie is 1/2, as in JAX
+    expd = torch.where(m, torch.exp(torch.minimum(
+        shifted, torch.zeros_like(shifted))), 0.0)
+    denom = torch.zeros(graph.nodes_pad, H, dtype=torch.float32,
+                        device=logits.device)
+    denom.index_add_(0, graph.edge_dst, expd.float())
+    alpha = expd / (denom.index_select(0, graph.edge_dst) + SOFTMAX_EPS)
+    return torch.where(m, alpha, 0.0).to(logits.dtype)
+
+
+def dense_scatter_matmul(graph: GraphBatch, edge_weights: torch.Tensor,
+                         values: torch.Tensor) -> torch.Tensor:
+    """``out[dst] = sum over edges src -> dst of w[e] * values[src]``:
+    edge_weights [E, H], values [N, H, C] -> [N, H, C] in the values' dtype.
+
+    The rounding points are JAX's: the masked weights are cast to the
+    values' dtype, parallel (src, dst) edges sum into a per-graph matrix P
+    [B, H, npg, npg] in float32 (an ``index_add_``, no one-hot operand), P
+    is cast to the values' dtype, the product P @ values accumulates in
+    float32 and is cast back."""
+    N, H, C = values.shape
+    B, npg, epg = dense_shapes(graph)
+    dt = values.dtype
+    w = torch.where(graph.edge_mask[:, None], edge_weights, 0.0).to(dt)
+    dl = graph.edge_dst % npg
+    sl = graph.edge_src % npg
+    b = torch.arange(B, device=dl.device).repeat_interleave(epg)
+    heads = torch.arange(H, device=dl.device)
+    cell = ((b[:, None] * H + heads) * npg + dl[:, None]) * npg + sl[:, None]
+    p = torch.zeros(B * H * npg * npg, dtype=torch.float32, device=dl.device)
+    p.index_add_(0, cell.reshape(-1), w.float().reshape(-1))
+    p = p.reshape(B, H, npg, npg).to(dt)
+    v = values.reshape(B, npg, H, C).transpose(1, 2)          # [B, H, npg, C]
+    out = torch.matmul(p.float(), v.float())                  # f32 accumulate
+    return out.transpose(1, 2).reshape(N, H, C).to(dt)
 
 
 def dense_node_softmax(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:

@@ -91,7 +91,11 @@ def gather_nodes(node_values: torch.Tensor,
 
 def scatter_edges_to_nodes(edge_values: torch.Tensor, edge_dst: torch.Tensor,
                            num_nodes: int,
-                           edge_mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """Sum per-edge values into their destination nodes."""
-    return segment_sum(edge_values, edge_dst, num_nodes, edge_mask)
+                           edge_mask: Optional[torch.Tensor] = None,
+                           reduce: str = "sum") -> torch.Tensor:
+    """Sum (or mean) of per-edge values into their destination nodes."""
+    if reduce == "sum":
+        return segment_sum(edge_values, edge_dst, num_nodes, edge_mask)
+    if reduce == "mean":
+        return segment_mean(edge_values, edge_dst, num_nodes, edge_mask)
+    raise ValueError(f"unknown reduce: {reduce}")

@@ -1,20 +1,26 @@
 """The train and eval loops (port of ``graphvqa_tpu/train/loop.py``).
 
 ``make_train_step(model, cfg)`` returns ``train_step(state, batch,
-generator)``: forward (dropout drawn from ``generator``, BatchNorm on batch
-statistics), the loss, the backward, one Adam step with StepLR, the running
-statistics' update and the in-step metrics, which stay on the device. With
+generator, ctx_generator=None)``: forward (dropout drawn from
+``generator``, LCGN's context features from ``ctx_generator``, BatchNorm on
+batch statistics), the loss, the backward, one Adam step with StepLR, the
+running statistics' update and the in-step metrics (with the execution
+engine, the bitmap's true and predicted positives), which stay on the
+device. With
 ``steps_per_dispatch=K`` it takes a list of K batches and runs K steps in
 order, reporting their metrics reduced as the JAX package's ``lax.scan``
 dispatch does (counts summed, losses meaned, the last lr); the K steps are
 exactly K single calls.
-``make_eval_step(model, cfg)`` returns ``eval_step(batch)``: one request is
-one :class:`QABatch` on the model's device; the answer is the per-row
-signals of the JAX step (``vectors``), the greedy program tokens and the
-pooling's node attention. ``train_one_epoch`` feeds batches to a train step
-and prints meters (and can trace a window of steps with torch.profiler);
-``validate`` runs the eval step over batches, prints the accuracies and
-writes the result and attention dumps the official scorer reads.
+``make_eval_step(model, cfg)`` returns ``eval_step(batch, generator=None)``:
+one request is one :class:`QABatch` on the model's device; the answer is the
+per-row signals of the JAX step (``vectors``, with ``execution_bitmap``
+when the model has the execution engine), the greedy program tokens and the
+pooling's node attention. ``generator`` draws LCGN's context features; an
+lcgn model given none raises. ``train_one_epoch`` feeds batches to a train
+step and prints meters (and can trace a window of steps with
+torch.profiler); ``validate`` runs the eval step over batches, prints the
+accuracies (and the bitmap's precision and recall) and writes the result
+and attention dumps the official scorer reads.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 from graphvqa_tpu_torch.config import Config
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.models.pipeline import PipelineModel
+from graphvqa_tpu_torch.nn.execution import bitmap_precision_recall
 from graphvqa_tpu_torch.train.logging_utils import AverageMeter, ProgressMeter
 from graphvqa_tpu_torch.train.losses import total_loss
 from graphvqa_tpu_torch.train.metrics import (
@@ -55,7 +62,8 @@ def make_train_step(model: PipelineModel, cfg: Config,
     tc = cfg.train
 
     def train_step(state: TrainState, batch: QABatch,
-                   generator: torch.Generator):
+                   generator: torch.Generator,
+                   ctx_generator: Optional[torch.Generator] = None):
         programs_target = batch.programs[:, 1:]
         full_answers_target = batch.full_answers[:, 1:]
         for p in model.parameters():
@@ -63,6 +71,7 @@ def make_train_step(model: PipelineModel, cfg: Config,
         # the full-answer decoder runs only when a loss reads it
         out = model(_teacher_inputs(batch), deterministic=False,
                     use_running_average=False, generator=generator,
+                    ctx_generator=ctx_generator,
                     full_answer=tc.use_full_answer_loss)
         loss, parts = total_loss(
             out, programs_target, full_answers_target,
@@ -89,18 +98,25 @@ def make_train_step(model: PipelineModel, cfg: Config,
                 program_group_correct=g_c, program_group_total=g_t,
                 program_nonempty_correct=ne_c, program_nonempty_total=ne_t,
                 lr=lr, edge_count=batch.graphs.edge_mask.sum())
+            if out.execution_bitmap is not None:
+                tp, pred_total, _, true_total = bitmap_precision_recall(
+                    out.execution_bitmap, batch.graphs.exec_bitmap,
+                    batch.graphs.node_mask)
+                metrics.update(bitmap_tp=tp, bitmap_pred_total=pred_total,
+                               bitmap_true_total=true_total)
         return state, metrics
 
     if steps_per_dispatch <= 1:
         return train_step
 
-    def multi_step(state: TrainState, batches, generator: torch.Generator):
+    def multi_step(state: TrainState, batches, generator: torch.Generator,
+                   ctx_generator: Optional[torch.Generator] = None):
         if len(batches) != steps_per_dispatch:
             raise ValueError(f"expected {steps_per_dispatch} batches, got "
                              f"{len(batches)}")
         per_step: Dict[str, list] = {}
         for batch in batches:
-            state, m = train_step(state, batch, generator)
+            state, m = train_step(state, batch, generator, ctx_generator)
             for k, v in m.items():
                 per_step.setdefault(k, []).append(v)
         return state, reduce_scanned_metrics(per_step)
@@ -113,11 +129,12 @@ def make_eval_step(model: PipelineModel, cfg: Config) -> Callable:
     steps = cfg.model.max_execution_steps
 
     @torch.inference_mode()
-    def eval_step(batch: QABatch):
+    def eval_step(batch: QABatch,
+                  generator: Optional[torch.Generator] = None):
         """Greedy-decode validation -> (vectors, program_tokens,
         node_attention); rows are kept per sample so the caller can mask a
-        ragged final batch."""
-        out = model.sample(_teacher_inputs(batch))
+        ragged final batch. ``generator`` draws LCGN's context features."""
+        out = model.sample(_teacher_inputs(batch), ctx_generator=generator)
         # sampled buffer vs the full target including <start>
         match, group_match, empty = program_match_vectors(
             out.program_tokens, batch.programs, pad, steps)
@@ -126,6 +143,8 @@ def make_eval_step(model: PipelineModel, cfg: Config) -> Callable:
         vectors = dict(sa_pred=sa_pred, sa_score=sa_score,
                        program_match=match, program_group_match=group_match,
                        program_empty=empty)
+        if out.execution_bitmap is not None:
+            vectors["execution_bitmap"] = out.execution_bitmap
         return vectors, out.program_tokens, out.node_attention
 
     return eval_step
@@ -135,7 +154,9 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
                     generator: torch.Generator, epoch: int,
                     print_freq: int = 100, num_batches: Optional[int] = None,
                     engine_rounds: int = 5, profile_dir: Optional[str] = None,
-                    profile_steps: tuple = (5, 10)) -> TrainState:
+                    profile_steps: tuple = (5, 10),
+                    ctx_generator: Optional[torch.Generator] = None
+                    ) -> TrainState:
     """Run ``train_step`` over ``batches`` ((meta, batch) pairs), printing
     the loss, the accuracies and the throughput every ``print_freq`` steps.
     The metric dicts stay on the device until a print boundary, so the host
@@ -194,7 +215,7 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
             elif i == profile_steps[1] and profiler is not None:
                 _stop_profiler(profiler, profile_dir)
                 profiler = None
-        state, m = train_step(state, batch, generator)
+        state, m = train_step(state, batch, generator, ctx_generator)
         pending.append(m)
         if i % print_freq == 0:
             drain()
@@ -291,7 +312,8 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
              dump_attentions_path: Optional[str] = None,
              scenes: Optional[dict] = None,
              max_batches: Optional[int] = None,
-             print_qualitative: bool = False) -> Dict[str, float]:
+             print_qualitative: bool = False,
+             generator: Optional[torch.Generator] = None) -> Dict[str, float]:
     """Greedy-decode validation over ``batches`` ((meta, batch) pairs on the
     model's device): short-answer, program, program-group and non-empty
     program accuracies over the real rows of each batch (a ragged last
@@ -301,12 +323,17 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
     indent 4 and sorted keys); ``dump_attentions_path`` with ``scenes`` the
     object attention dump of the official grounding metric. ``max_batches``
     stops early (FAST_VALIDATE); ``print_qualitative`` prints decoded samples
-    of the first batch. Single-process: the JAX package's cross-process
+    of the first batch; ``generator`` goes to the eval step (LCGN's draw).
+    With the execution engine, the bitmap's precision and recall over the
+    real graphs' nodes come back as ``bitmap_precision`` /
+    ``bitmap_recall``. Single-process: the JAX package's cross-process
     meter sync and dump gather are not ported."""
     sa = AverageMeter("Acc@Short", ":6.2f")
     pa = AverageMeter("Acc@Program", ":6.2f")
     pg = AverageMeter("Acc@ProgramGroup", ":4.2f")
     pne = AverageMeter("Acc@ProgramNonEmpty", ":4.2f")
+    bprec = AverageMeter("Bitmap@Precision", ":4.2f")
+    brec = AverageMeter("Bitmap@Recall", ":4.2f")
     progress = ProgressMeter(0, [sa, pa, pg, pne], prefix="Test: ")
     quesid2ans, attentions_out = {}, []
     M = cfg.model.max_execution_steps
@@ -317,7 +344,7 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
     for i, (meta, batch) in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
-        vec, prog_tokens, node_att = eval_step(batch)
+        vec, prog_tokens, node_att = eval_step(batch, generator)
         real = meta.get("real_count", batch.questions.shape[0])
         total_real += real
         sa_pred_np = _host(vec["sa_pred"])[:real]
@@ -333,6 +360,14 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
         pg.update(100.0 * float(gmatch.sum()) / max(real, 1), real)
         nt = real * M - int(empty.sum())
         pne.update(100.0 * float(match.sum() - empty.sum()) / max(nt, 1), nt)
+        if "execution_bitmap" in vec and real > 0:
+            # over the real graphs' nodes only
+            g = batch.graphs
+            nmask = g.node_mask & (g.node_graph < real)
+            tp, n_pred, _, n_true = (int(v) for v in bitmap_precision_recall(
+                vec["execution_bitmap"], g.exec_bitmap, nmask))
+            bprec.update(100.0 * tp / max(n_pred, 1), max(n_pred, 1))
+            brec.update(100.0 * tp / max(n_true, 1), max(n_true, 1))
 
         if i == 0 and print_qualitative and text_vocab is not None:
             _print_qualitative(meta, batch, prog_np, sa_pred_np, text_vocab,
@@ -382,5 +417,9 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(quesid2ans, indent=4, sort_keys=True))
         print("Result Dumped!", str(path))
-    return {"short_answer_acc": sa.avg, "program_acc": pa.avg,
-            "program_group_acc": pg.avg, "program_nonempty_acc": pne.avg}
+    res = {"short_answer_acc": sa.avg, "program_acc": pa.avg,
+           "program_group_acc": pg.avg, "program_nonempty_acc": pne.avg}
+    if bprec.count:
+        res["bitmap_precision"] = bprec.avg
+        res["bitmap_recall"] = brec.avg
+    return res

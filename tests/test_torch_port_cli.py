@@ -461,13 +461,81 @@ def test_cli_trains_checkpoints_resumes_evaluates_and_scores(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model", "gcn"], "item 5"), (["--use-execution-engine"], "item 5"),
-    (["--data-parallel", "2"], "item 6"), (["--edge-parallel", "2"], "item 6")])
+    (["--data-parallel", "2"], "item 6"), (["--edge-parallel", "2"], "item 6"),
+    (["--model", "lcgn", "--data-parallel", "2"], "item 6")])
 def test_cli_names_the_roadmap_item_of_unported_flags(flags, item, tmp_path):
     args = get_args_parser().parse_args(
         ["--data-root", str(tmp_path), "--device", "cpu"] + flags)
     with pytest.raises(SystemExit, match=item):
         cli_main(args)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--model", "gcn"], ["--model", "gine"], ["--model", "lcgn"],
+    ["--model", "onlysg"], ["--model", "gat", "--use-execution-engine"]],
+    ids=["gcn", "gine", "lcgn", "onlysg", "gat-exec"])
+def test_cli_trains_and_evaluates_every_family(flags, tmp_path):
+    """One tiny epoch with a validation, then --resume --evaluate with the
+    dumps, for each family and the execution engine; no exit."""
+    root, out = _debug_root(tmp_path), tmp_path / "out"
+    common = ["--tiny", "--device", "cpu", "--data-root", str(root),
+              "--split", "debug", "--val-split", "debug", "--batch-size", "4",
+              "--print-freq", "1", "--output_dir", str(out)] + flags
+    stdout = _run_banned(_cli_script(root, out, [
+        common + ["--epochs", "1", "--validate-every", "1"],
+        common + ["--evaluate", "--dump-result", "--dump-attentions",
+                  "--resume", str(out / "ckpt")]]))
+    assert "resumed from" in stdout and "Result Dumped!" in stdout
+    assert "Accuracy:" in stdout
+    losses = [float(v) for v in re.findall(r"Loss (\S+) \(", stdout)]
+    assert losses and all(np.isfinite(losses))
+    with_bitmap = "--use-execution-engine" in flags
+    assert ("'bitmap_precision'" in stdout) == with_bitmap
+    name = flags[1]
+    assert (out / f"log-{name}.txt").stat().st_size > 0
+    ckpt = torch.load(out / "ckpt" / "ckpt_0.pt", weights_only=True)
+    engine = {"onlysg": "gat_seq"}.get(name, f"{name}_seq")
+    assert any(k.startswith(engine + ".") for k in ckpt["params"])
+    assert any(k.startswith("execution_engine.")
+               for k in ckpt["params"]) == with_bitmap
+
+
+def test_validate_bitmap_meters_match_jax(tmp_path):
+    """--use-execution-engine: validate's bitmap precision and recall over
+    the real graphs' nodes equal JAX validate's on the same batches (B=4:
+    a full batch and a ragged one)."""
+    root = _debug_root(tmp_path)
+    data = json.loads((root / "questions" / "debug_programs.json").read_text())
+    jtv = jvocab.build_text_vocab(data, __import__(
+        "graphvqa_tpu.data.tokenizer", fromlist=["tokenize"]).tokenize)
+    ptv = pvocab.Vocab(jtv.itos)
+    args = get_args_parser().parse_args([
+        "--data-root", str(root), "--tiny", "--dtype", "float32",
+        "--batch-size", "4", "--use-execution-engine"])
+    pc = build_config(args, len(ptv), len(pvocab.build_scene_graph_vocab()))
+    assert pc.model.use_execution_engine and pc.train.use_bitmap_loss
+    jc = jcfg.Config(model=_jax_model_config(pc.model),
+                     batch=jcfg.BatchConfig(**dataclasses.asdict(pc.batch)))
+    variables = jax_variables(jc.model, seed=9)
+    # a peaked gate, so that some nodes pass the 0.5 threshold
+    gate = variables["params"]["execution_engine"]["bitmap_gate_mlp"]
+    gate["lin2"]["kernel"] = gate["lin2"]["kernel"] * 40.0
+    programs = root / "questions" / "debug_programs.json"
+    scenes = root / "sceneGraphs" / "val_sceneGraphs.json"
+    pds = pdataset.GQADataset(programs, scenes, ptv,
+                              pvocab.build_scene_graph_vocab())
+    jds = jdataset.GQADataset(programs, scenes, jtv,
+                              jvocab.build_scene_graph_vocab())
+    pres = validate(make_eval_step(port_model(jc.model, variables), pc),
+                    pds.iter_batches(pc.batch), pc)
+    jres = jax_validate(
+        jax_make_eval_step(JaxPipelineModel(jc.model), jc),
+        jax_create_train_state(jax.tree.map(jnp.asarray, variables)),
+        jds.iter_batches(jc.batch), jax.random.key(0), jc)
+    assert "bitmap_precision" in jres and "bitmap_recall" in jres
+    assert 0 < jres["bitmap_precision"] < 100
+    assert 0 < jres["bitmap_recall"] < 100
+    assert pres == pytest.approx(jres)
 
 
 def test_cli_default_device_is_the_gpu(tmp_path, monkeypatch):

@@ -637,3 +637,63 @@ def test_collated_batch_through_eval_and_train_steps(layout):
             assert (gat_round.launches - f0,
                     gat_round_backward.launches - b0) == (kernels, kernels)
     torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("family", ["gcn", "gine", "lcgn", "onlysg",
+                                    "gat_exec"])
+def test_every_family_card_against_cpu(family):
+    """Each engine family (and gat with the execution engine) at tiny width
+    in float32: the eval logits (and the bitmap) within 1e-4 of the CPU's;
+    one train step's loss to rtol 1e-5 and every gradient within 1e-4 of its
+    tensor's largest |gradient| + 1e-7; the GAT kernels launch once per
+    round on onlysg and gat, never on gcn, gine and lcgn. LCGN's context
+    features are one fixed draw on both sides."""
+    import dataclasses
+    import functools
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.train.loop import make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = _device()
+    cfg, batch = tiny_train_case()
+    kind = {"onlysg": "none", "gat_exec": "gat"}.get(family, family)
+    exe = family == "gat_exec"
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model.replace_engine(kind),
+                                       use_execution_engine=exe),
+        train=dataclasses.replace(cfg.train, use_program_loss=True,
+                                  use_bitmap_loss=exe))
+    noise = torch.randn(batch.graphs.nodes_pad, cfg.model.transformer.hidden_dim,
+                        generator=torch.Generator().manual_seed(0))
+    rounds = cfg.model.engine.num_rounds if kind in ("gat", "none") else 0
+    runs = []
+    for device in ("cpu", dev):
+        model = build_model(cfg.model, device=device, seed=3)
+        if kind == "lcgn":
+            model.lcgn_seq.forward = functools.partial(
+                model.lcgn_seq.forward, x_ctx=noise.to(device))
+        f0 = gat_round.launches
+        out = model.sample(batch.to(device))
+        launched = gat_round.launches - f0
+        f0, b0 = gat_round.launches, gat_round_backward.launches
+        _, m = make_train_step(model, cfg)(
+            create_train_state(model, lr=1e-3), batch.to(device),
+            torch.Generator(device=device))
+        launched = (launched, gat_round.launches - f0,
+                    gat_round_backward.launches - b0)
+        bitmap = out.execution_bitmap
+        runs.append((out.short_answer_logits.cpu(),
+                     None if bitmap is None else bitmap.cpu(),
+                     float(m["total"]), launched,
+                     {n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.grad is not None}))
+    (lc, bc, loss_c, launched_c, gc), (lg, bg, loss_g, launched_g, gg) = runs
+    assert launched_c == (0, 0, 0)
+    assert launched_g == (rounds, rounds, rounds)
+    torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
+    if exe:
+        torch.testing.assert_close(bg, bc, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-5)
+    assert set(gg) == set(gc)
+    for n, g_c in gc.items():
+        torch.testing.assert_close(gg[n], g_c, rtol=0, msg=n,
+                                   atol=1e-4 * float(g_c.abs().max()) + 1e-7)

@@ -27,9 +27,12 @@ from graphvqa_tpu.train.loop import make_eval_step as jax_make_eval_step
 from graphvqa_tpu.train.train_state import create_train_state
 from graphvqa_tpu_torch.models.pipeline import build_model
 from graphvqa_tpu_torch.train.loop import make_eval_step
+from graphvqa_tpu_torch.models.convert import from_jax_variables
+from graphvqa_tpu_torch.models.pipeline import PipelineModel
 from tests.torch_port_helpers import (
-    jax_init_shapes, jax_variables, port_batch, port_model,
-    port_model_config, random_qa_batch, tiny_model_config)
+    CONVERTER_KIND, execution_engine_params, jax_init_shapes, jax_variables,
+    port_batch, port_model, port_model_config, random_qa_batch,
+    tiny_model_config)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -119,16 +122,98 @@ def test_weights_round_trip_through_reference_names():
 
 
 def test_port_config_mirrors_jax_config():
-    from graphvqa_tpu.config import gat_config as jax_gat_config
-    want = dataclasses.asdict(jax_gat_config())
-    got = dataclasses.asdict(pcfg.gat_config())
-    assert got["model"] == want["model"]
-    assert got["batch"] == want["batch"]
-    assert got["train"] == want["train"]
+    from graphvqa_tpu.config import CONFIG_FACTORY as JAX_FACTORY
+    assert set(pcfg.CONFIG_FACTORY) == set(JAX_FACTORY) == {
+        "gat", "gcn", "gine", "lcgn", "onlysg"}
+    for name, factory in JAX_FACTORY.items():
+        want = dataclasses.asdict(factory())
+        got = dataclasses.asdict(pcfg.CONFIG_FACTORY[name]())
+        assert got["model"] == want["model"], name
+        assert got["batch"] == want["batch"], name
+        assert got["train"] == want["train"], name
+
+
+def _family_cfg(name):
+    kind = {"onlysg": "none", "gat_exec": "gat"}.get(name, name)
+    return tiny_model_config(kind, use_execution_engine=name == "gat_exec")
+
+
+@pytest.mark.parametrize("name,pyg", [
+    ("gcn", "1.x"), ("gcn", "2.0"), ("gine", None), ("lcgn", None),
+    ("onlysg", None), ("gat_exec", None)])
+def test_family_weights_round_trip_through_reference_names(name, pyg):
+    """port state_dict -> the JAX package's converter (gcn in PyG 1.x's
+    ``convs.i.weight`` [in, out] and >= 2.0's ``convs.i.lin.weight``
+    [out, in] layouts) == the JAX variables -> ``from_jax_variables`` ==
+    the port state_dict; the tree matches what ``PipelineModel.init``
+    makes."""
+    cfg = _family_cfg(name)
+    variables = jax_variables(cfg, seed=2)
+    model = port_model(cfg, variables)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    ref = dict(sd)
+    if pyg == "2.0":
+        for i in range(cfg.engine.num_rounds):
+            ref[f"gcn_seq.convs.{i}.lin.weight"] = ref.pop(
+                f"gcn_seq.convs.{i}.weight").T.copy()
+    L = cfg.transformer.num_layers
+    back = convert_pipeline(ref, kind=CONVERTER_KIND[cfg.engine.kind],
+                            num_encoder_layers=L, num_decoder_layers=L,
+                            num_rounds=cfg.engine.num_rounds,
+                            lcgn_iters=cfg.engine.lcgn_iters)
+    if cfg.use_execution_engine:
+        back["params"]["execution_engine"] = execution_engine_params(sd)
+    want_leaves, want_def = jax.tree.flatten(variables)
+    got_leaves, got_def = jax.tree.flatten(back)
+    assert got_def == want_def
+    for g, w in zip(got_leaves, want_leaves):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    again = from_jax_variables(back, cfg.engine.kind)
+    assert set(again) == set(sd)
+    for k, v in again.items():
+        np.testing.assert_array_equal(v.numpy(), sd[k], err_msg=k)
+    shapes = jax.tree.map(lambda a: tuple(np.shape(a)), variables)
+    init = jax_init_shapes(cfg)
+    assert shapes == {"params": init["params"],
+                      "batch_stats": init.get("batch_stats", {})}
+
+
+def test_reference_lcgn_state_dict_with_dead_bns_loads():
+    """The reference's ``lcgn_seq.bns`` are never read by its forward: a
+    reference-named state dict that carries them loads (they are dropped)."""
+    cfg = port_model_config(_family_cfg("lcgn"))
+    model = PipelineModel(cfg)
+    sd = dict(model.state_dict())
+    for i in range(cfg.engine.lcgn_iters):
+        sd[f"lcgn_seq.bns.{i}.weight"] = torch.ones(4)
+        sd[f"lcgn_seq.bns.{i}.running_var"] = torch.ones(4)
+        sd[f"lcgn_seq.bns.{i}.num_batches_tracked"] = torch.tensor(3)
+    fresh = PipelineModel(cfg)
+    fresh.load_state_dict(sd)
+    assert not any("bns" in k for k in fresh.state_dict())
+    for k, v in model.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
+
+
+def test_gine_nonzero_eps_rejected_by_the_port():
+    """As the JAX converter refuses a trained GINE eps, so does the port's
+    load_state_dict; eps 0 loads."""
+    cfg = port_model_config(_family_cfg("gine"))
+    sd = dict(PipelineModel(cfg).state_dict())
+    PipelineModel(cfg).load_state_dict(sd)
+    sd["gine_seq.convs.1.eps"] = torch.tensor([0.3])
+    with pytest.raises(ValueError, match="eps"):
+        PipelineModel(cfg).load_state_dict(sd)
+    with pytest.raises(ValueError, match="eps"):
+        convert_pipeline({k: v.numpy() for k, v in sd.items()}, kind="gine",
+                         num_encoder_layers=cfg.transformer.num_layers,
+                         num_decoder_layers=cfg.transformer.num_layers,
+                         num_rounds=cfg.engine.num_rounds)
 
 
 def test_port_runs_without_jax_flax_or_the_jax_package():
     code = """
+import dataclasses
 import re
 import sys
 for name in ("jax", "jaxlib", "flax", "graphvqa_tpu"):
@@ -140,10 +225,12 @@ import graphvqa_tpu_torch.data.prefetch
 import graphvqa_tpu_torch.data.synthetic
 import graphvqa_tpu_torch.eval.scorer
 import graphvqa_tpu_torch.models.pretrained
+import graphvqa_tpu_torch.nn.execution
+import graphvqa_tpu_torch.ops.dispatch
 import graphvqa_tpu_torch.ops.layernorm
 from graphvqa_tpu_torch.config import (
-    Config, EngineConfig, ModelConfig, SceneGraphConfig, TextConfig,
-    TransformerConfig)
+    CONFIG_FACTORY, Config, EngineConfig, ModelConfig, SceneGraphConfig,
+    TextConfig, TransformerConfig)
 from graphvqa_tpu_torch.core import (
     GraphSample, QABatch, pack_graphs, pack_graphs_dense)
 from graphvqa_tpu_torch.core.native import packer_name
@@ -181,6 +268,22 @@ flat = QABatch(pack_graphs([sample(5, 9), sample(7, 14)], 16, 32, max_steps=3),
                                              "short_answer_label")])
 vectors, tokens, attention = make_eval_step(model, Config(model=cfg))(flat)
 assert tokens.shape == (6, 8) and torch.isfinite(vectors["sa_score"]).all()
+for name, factory in CONFIG_FACTORY.items():
+    for exe in (False, True):
+        mc = dataclasses.replace(
+            cfg.replace_engine(factory().model.engine.kind),
+            use_execution_engine=exe)
+        fam = build_model(mc, device="cpu")
+        fcfg = Config(model=mc, train=factory().train)
+        ctx = torch.Generator().manual_seed(1)
+        for b in (batch, flat):
+            vectors, tokens, _ = make_eval_step(fam, fcfg)(b, ctx)
+            assert torch.isfinite(vectors["sa_score"]).all()
+            assert ("execution_bitmap" in vectors) == exe
+        _, m = make_train_step(fam, fcfg)(
+            create_train_state(fam), batch, torch.Generator().manual_seed(0),
+            ctx)
+        assert torch.isfinite(m["total"]), name
 assert re.fullmatch(r"native \(.+\)|numpy", packer_name())
 assert not any(sys.modules.get(n) for n in ("jax", "flax", "graphvqa_tpu"))
 print("port ok")

@@ -27,10 +27,34 @@ def port_model_config(jax_cfg) -> pcfg.ModelConfig:
     return pcfg.ModelConfig(**fields)
 
 
+# the JAX converter's name of each engine kind ("none" is the onlysg model)
+CONVERTER_KIND = {"gat": "gat", "none": "onlysg", "gcn": "gcn",
+                  "gine": "gine", "lcgn": "lcgn"}
+
+
+def execution_engine_params(sd):
+    """The port's ``execution_engine.*`` entries as the JAX engine's params
+    (the reference has no names for this engine, so the JAX converter has
+    no mapping)."""
+    def linear(prefix):
+        return {"kernel": sd[f"{prefix}.weight"].T.copy(),
+                "bias": sd[f"{prefix}.bias"]}
+
+    base = "execution_engine"
+    p = {n: {"lin1": linear(f"{base}.{n}.0"), "lin2": linear(f"{base}.{n}.2")}
+         for n in ("node_mlp_1", "node_mlp_2", "bitmap_gate_mlp",
+                   "history_mlp")}
+    p["ln_weight"] = sd[f"{base}.ln_weight"]
+    p["ln_bias"] = sd[f"{base}.ln_bias"]
+    return p
+
+
 def jax_variables(cfg, seed=0):
-    """JAX-package variables (numpy leaves) for the tiny model: seeded
-    random weights with randomized BatchNorm running statistics, mapped into
-    the JAX tree by the JAX package's own reference-checkpoint converter."""
+    """JAX-package variables (numpy leaves) for the tiny model of
+    ``cfg.engine.kind``: seeded random weights with randomized BatchNorm
+    running statistics, mapped into the JAX tree by the JAX package's own
+    reference-checkpoint converter (``convert_pipeline(sd, kind=...)``;
+    the execution engine by :func:`execution_engine_params`)."""
     model = PipelineModel(port_model_config(cfg))
     init_params(model, torch.Generator().manual_seed(seed))
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
@@ -41,9 +65,13 @@ def jax_variables(cfg, seed=0):
         elif k.endswith("running_var"):
             sd[k] = rng.uniform(0.5, 2.0, sd[k].shape).astype(np.float32)
     L = cfg.transformer.num_layers
-    return convert_pipeline(sd, kind="gat", num_encoder_layers=L,
-                            num_decoder_layers=L,
-                            num_rounds=cfg.engine.num_rounds)
+    variables = convert_pipeline(
+        sd, kind=CONVERTER_KIND[cfg.engine.kind], num_encoder_layers=L,
+        num_decoder_layers=L, num_rounds=cfg.engine.num_rounds,
+        lcgn_iters=cfg.engine.lcgn_iters)
+    if cfg.use_execution_engine:
+        variables["params"]["execution_engine"] = execution_engine_params(sd)
+    return variables
 
 
 def jax_init_shapes(cfg):
@@ -59,7 +87,7 @@ def jax_init_shapes(cfg):
 
 def port_model(cfg, variables) -> PipelineModel:
     model = PipelineModel(port_model_config(cfg))
-    model.load_state_dict(from_jax_variables(variables))
+    model.load_state_dict(from_jax_variables(variables, cfg.engine.kind))
     return model.eval()
 
 
@@ -79,6 +107,7 @@ def port_batch(b) -> QABatch:
                    short_answer_label=t(b.short_answer_label))
 
 
-__all__ = ["port_model_config", "jax_variables", "jax_init_shapes",
+__all__ = ["CONVERTER_KIND", "execution_engine_params", "port_model_config",
+           "jax_variables", "jax_init_shapes",
            "port_model", "port_graph", "port_batch", "random_qa_batch",
            "tiny_model_config"]
