@@ -1,6 +1,7 @@
 """One whole float32 train step of each engine family (gcn, gine, lcgn,
 onlysg, and gat with the execution engine) against the JAX package's
-``make_train_step``, on the CPU, dropout off. The batch, weights and
+``make_train_step``, on the CPU, dropout off, in the dense and the flat
+layout. The batch, weights and
 LCGN's fixed context features are those of ``tests/test_torch_port_engines.py``
 (whose docstring states the bounds, the train tests' own): loss, its parts
 and the metrics rtol 1e-5; every gradient within 1e-5 of its tensor's
@@ -38,12 +39,15 @@ def _adam_grads(state):
     return jax.tree.map(lambda m: np.asarray(m) / np.float32(0.1), adam.mu)
 
 
-@pytest.fixture(scope="module", params=list(FAMILIES))
+@pytest.fixture(scope="module", params=[
+    (name, layout) for name in FAMILIES for layout in ("dense", "flat")],
+    ids=lambda p: "-".join(p))
 def train_case(request):
-    name = request.param
+    name, layout = request.param
     cfg, train = _family(name)
     variables = jax_variables(cfg, seed=22)
-    jb = random_qa_batch(seed=23, num_graphs=4, cfg=cfg, dense=True)
+    jb = random_qa_batch(seed=23, num_graphs=4, cfg=cfg,
+                         dense=layout == "dense")
     noise = _noise(cfg, jb)
     jvars = jax.tree.map(jnp.asarray, variables)
     with _fixed_normal(noise):
