@@ -372,11 +372,10 @@ class GINESeq(nn.Module):
     ``MLP([h ; ins] + aggr)`` (eps = 0)."""
 
     def __init__(self, channels: int, ins_dim: int, num_rounds: int = 5,
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
-                 fix_discarded_conv: bool = True):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.num_rounds, self.compute_dtype = num_rounds, dtype
-        self.dropout, self.fix_discarded_conv = dropout, fix_discarded_conv
+        self.dropout = dropout
         self.convs = nn.ModuleList(GINEConv(channels + ins_dim, channels, dtype)
                                    for _ in range(num_rounds))
         self.bns = _bns(channels, num_rounds, dtype)
@@ -390,10 +389,8 @@ class GINESeq(nn.Module):
             x_cat = torch.cat([h, graph_to_nodes(graph, ins)], dim=-1)
             edge_cat = torch.cat([edge_attr, graph_to_edges(graph, ins)], dim=-1)
             msgs = torch.relu(gather_src(graph, x_cat) + edge_cat)
-            conv_res = conv.nn(x_cat + aggregate_edge_values(graph, msgs))
-            conv_res = torch.where(graph.node_mask[:, None], conv_res, 0.0)
-            if self.fix_discarded_conv:
-                h = conv_res
+            h = conv.nn(x_cat + aggregate_edge_values(graph, msgs))
+            h = torch.where(graph.node_mask[:, None], h, 0.0)
             h = _between_rounds(self, i, h, graph, generator,
                                 use_running_average)
         return h

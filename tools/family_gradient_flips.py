@@ -6,17 +6,17 @@
 For each named family of chip_smoke.py's phase 12 (gcn, gine, lcgn, onlysg,
 exec; default gine and lcgn): one float32 train step of the full-width
 model (dropout 0) on phase 8's B=8 batch, from the same weights, on the CPU
-and twice on the card (LCGN's context features one fixed draw). Prints, for
+and twice on the card (LCGN's context features one fixed draw), with no
+ReLU input set to the CPU's (phase 12 sets them; this shows why). Prints, for
 the six tensors whose gradient differs most between card and CPU: the
 largest difference over the tensor's largest |gradient|, the difference's
 norm over the gradient's, how many elements differ by more than 1e-3 of
 the tensor's scale, and the same largest difference between the two card
 runs (the card's own run-to-run noise). Then, at the inputs of the ReLUs
-that follow a module (``relu_inputs``; GINE's message ReLU follows no
-module and is not watched), the elements whose sign differs between card
-and CPU, with the largest |input| among them: a ReLU input
-within round-off of 0 can fall either way, and then its unit's gradient
-moves by its whole share. Needs an NVIDIA GPU.
+that follow a module (``chip_smoke.relu_inputs``, first call of each), the
+elements whose sign differs between card and CPU, with the largest |input|
+among them: a ReLU input within round-off of 0 can fall either way, and
+then its unit's gradient moves by its whole share. Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -28,22 +28,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def relu_inputs(model):
-    """(name, module) of the modules whose output a ReLU takes: the first
-    layer of every Seq(Lin, ReLU, Lin), the transformers' ``linear1``,
-    LCGN's ``qInput1`` and the BatchNorms between engine rounds (first
-    call of each)."""
-    import torch
-    from graphvqa_tpu_torch.nn.norm import MaskedBatchNorm
-    for name, mod in model.named_modules():
-        if isinstance(mod, torch.nn.Sequential) and any(
-                isinstance(m, torch.nn.ReLU) for m in mod):
-            yield f"{name}.0", mod[0]
-        elif name.endswith(("linear1", "qInput1")) or isinstance(
-                mod, MaskedBatchNorm):
-            yield name, mod
-
-
 def step(cfg, batch, noise, device, hooks):
     """One train step -> (loss, {param: grad}, {module: relu input})."""
     import torch
@@ -51,21 +35,13 @@ def step(cfg, batch, noise, device, hooks):
     from graphvqa_tpu_torch.train.loop import make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
     model = cs.fixed_ctx(cs.full_model(cfg, device), noise)
-    acts = {}
-
-    def keep(name, out):          # returns None: the output stays as it is
-        acts.setdefault(name, out.detach().float().cpu())
-
-    if hooks:
-        for name, mod in relu_inputs(model):
-            mod.register_forward_hook(
-                lambda m, i, o, n=name: keep(n, o))
+    record = cs.watch_relu_inputs(model)[0] if hooks else {}
     _, m = make_train_step(model, cfg)(
         create_train_state(model, lr=cfg.train.lr), batch.to(device),
         torch.Generator(device=device).manual_seed(0))
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
              for n, p in model.named_parameters()}
-    return float(m["total"]), grads, acts
+    return float(m["total"]), grads, {n: v[0] for n, v in record.items()}
 
 
 def main(names) -> None:
