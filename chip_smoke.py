@@ -70,6 +70,27 @@ Phases, in order; any failure exits non-zero:
               --model lcgn --use-execution-engine (2 steps of B=512 on
               phase 9's val split, a 1-batch validation with the bitmap
               meters)
+ 13. multi    the multi-device paths, ranks spawned on the one card over
+              gloo: (a) both kernels against their plain versions on one
+              edge rank's share of phase 2's batch at K=2 and K=4, i.e. at
+              (npg, epg_loc) = (64, 128) and (64, 64), f32 and bf16, with the
+              graph shift given as the edge group's max; error, cold-L2
+              device time and bound. (b) the data-parallel step,
+              gat_config() at full width, two ranks of B=256: one f32 step
+              whose per-rank gradients equal the single-process step on each
+              rank's batch and whose parameters equal the average-then-Adam,
+              then bf16 steps (ms per step per rank, GAT launches 5 + 5 per
+              rank per step). (c) the edge-sharded step, B=512 at data 1 x
+              edge 2: one f32 step against the single-process step (phase
+              8's limits, with the ReLU pins), bf16 steps with the epg_loc
+              reached; then one step at data 2 x edge 2 on 4 ranks. (d) the
+              CLI under torchrun: one rank on nccl (an epoch, validation,
+              --resume --evaluate with the dumps) and --data-parallel 2 on
+              two ranks over gloo, whose gathered dump holds every val
+              question once. (e) convert_ckpt_cli on a reference-format
+              checkpoint of the seeded full-width model, restored logits
+              equal, --resume --evaluate on the card. Several ranks on one
+              card measure the port's overheads, not scaling
 
 Each phase's seconds print as "[seconds] phase N".
 
@@ -266,7 +287,7 @@ def kernel_inputs(dev):
                 real_nodes=int(graph.node_mask.sum()))
 
 
-def least_bytes(inp, elem, with_ins):
+def least_bytes(inp, elem, with_ins, epg=EPG):
     """The fewest bytes one GAT round must move on this batch: each input
     element that the result depends on read once, the output written once.
     That is the xw and alpha_l rows of distinct real sources, the alpha_r
@@ -282,7 +303,7 @@ def least_bytes(inp, elem, with_ins):
     n_edges = int(real.sum())
     f32 = 4
     return (n_src * H * C * elem + n_src * H * f32 + n_dst * H * f32
-            + n_edges * H * f32 + 3 * B * EPG * f32
+            + n_edges * H * f32 + 3 * B * epg * f32
             + (B * H * C * elem if with_ins else 0) + B * NPG * C * elem)
 
 
@@ -382,7 +403,7 @@ def keep_scale(inp, seed):
     return (keep >= DROPOUT).float() / (1.0 - DROPOUT)
 
 
-def backward_least_bytes(inp, elem, with_keep):
+def backward_least_bytes(inp, elem, with_keep, epg=EPG):
     """The fewest bytes one GAT-round backward must move on this batch:
     the forward's inputs that the gradients depend on read once (indices and
     mask in full, the xw and alpha_l rows of distinct real sources, the
@@ -398,11 +419,11 @@ def backward_least_bytes(inp, elem, with_keep):
     n_dst = int(torch.unique((dl + base)[real]).numel())
     n_edges = int(real.sum())
     f32 = 4
-    reads = (3 * B * EPG * f32 + n_src * H * C * elem + n_src * H * f32
+    reads = (3 * B * epg * f32 + n_src * H * C * elem + n_src * H * f32
              + n_dst * H * f32 + n_dst * C * elem
              + n_edges * H * f32 * (2 if with_keep else 1) + B * H * C * elem)
     writes = (B * NPG * H * C * elem + 2 * B * NPG * H * f32
-              + B * EPG * H * f32 + B * H * C * elem)
+              + B * epg * H * f32 + B * H * C * elem)
     return reads + writes, n_edges, n_dst
 
 
@@ -765,13 +786,15 @@ def relu_inputs(model):
             yield name, mod
 
 
-def watch_relu_inputs(model, ref=None, tag=""):
+def watch_relu_inputs(model, ref=None, tag="", edge_rows=None):
     """Forward hooks on relu_inputs(model). Without ``ref``: record every
     call's output on the CPU, {name: [output per call]}. With ``ref`` (such
     a record of the same step on the CPU): where an output's sign differs
     from ref's, its value becomes ref's (its gradient passes as before), so
     every ReLU goes the same way on both devices; an element so set may
-    differ from ref's by at most PIN_TOL of ref's largest |x|. Returns
+    differ from ref's by at most PIN_TOL of ref's largest |x|. ``edge_rows``
+    (an edge rank's slots as indices of ref's edges, -1 on padding) maps an
+    output over the rank's share of the edges onto ref's rows. Returns
     (record, pins), pins a list of (name, call, elements, largest |x|)."""
     import torch
     record, pins = {}, []
@@ -783,7 +806,13 @@ def watch_relu_inputs(model, ref=None, tag=""):
             return None
         calls.append(None)
         want = ref[name][len(calls) - 1].to(out.device)
+        real = None
+        if edge_rows is not None and want.shape[0] != out.shape[0]:
+            real = (edge_rows >= 0).reshape(-1, *([1] * (out.ndim - 1)))
+            want = want.index_select(0, edge_rows.clamp(min=0))
         flips = (out > 0) != (want > 0)
+        if real is not None:
+            flips = flips & real
         if not bool(flips.any()):
             return None
         gap = float((out.detach() - want)[flips].abs().max())
@@ -841,11 +870,28 @@ def phase_train_parity(dev, base=None, tag="train-parity"):
         del model, state
     del ref
     cpu, gpu = runs["cpu"], runs[str(dev)]
-    loss_err = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    pinned = "; ".join(f"{n} call {c}: {k} at |x| <= {x:.2e}"
+                       for n, c, k, x in pins) or "none"
+    log(f"[{tag}] f32 B=8 full width, one step: "
+        f"{hold_train_step(cpu, gpu, tag, 'card', 'cpu')}; ReLU inputs set "
+        f"to the CPU's sign: {pinned}; card {gpu['seconds']:.2f}s cpu "
+        f"{cpu['seconds']:.2f}s")
+
+
+def hold_train_step(ref, got, tag, got_name, ref_name, cond_grads=None):
+    """Phase 8's limits on one float32 train step ``got`` against ``ref``
+    (dicts of loss, grads, params and stats on the CPU): the loss to
+    TRAIN_LOSS_RTOL; each gradient within TRAIN_GRAD_TOL of its tensor's
+    largest |gradient| plus 1e-7; the updated parameters to
+    TRAIN_PARAM_ATOL where |gradient| > 1e-5 (``cond_grads``, else ref's);
+    the running statistics to rtol/atol 1e-4. Fails beyond them; returns
+    the worst differences as text."""
+    import torch
+    loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
     grad_err = near_zero_err = param_err = stat_err = 0.0
     n_compared = 0
-    for n, gc in cpu["grads"].items():
-        d = gpu["grads"][n] - gc
+    for n, gc in ref["grads"].items():
+        d = got["grads"][n] - gc
         scale = float(gc.abs().max())
         err = float(d.abs().max())
         if scale > 1e-5:
@@ -853,38 +899,35 @@ def phase_train_parity(dev, base=None, tag="train-parity"):
         else:       # a gradient that is 0 in exact arithmetic: round-off
             near_zero_err = max(near_zero_err, err)
         if err > TRAIN_GRAD_TOL * scale + 1e-7:
-            fail(f"{tag}: train step card vs CPU: gradient of {n} differs by "
-                 f"{err:.3e} (scale {scale:.3e})")
+            fail(f"{tag}: train step {got_name} vs {ref_name}: gradient of "
+                 f"{n} differs by {err:.3e} (scale {scale:.3e})")
         # updates are compared where the gradients are well conditioned
-        conditioned = gc.abs() > 1e-5
+        conditioned = (gc if cond_grads is None else cond_grads[n]).abs() \
+            > 1e-5
         n_compared += int(conditioned.sum())
-        perr = float((gpu["params"][n] - cpu["params"][n])[conditioned]
+        perr = float((got["params"][n] - ref["params"][n])[conditioned]
                      .abs().max()) if bool(conditioned.any()) else 0.0
         param_err = max(param_err, perr)
         if perr > TRAIN_PARAM_ATOL:
-            fail(f"{tag}: train step card vs CPU: updated {n} differs by "
-                 f"{perr:.3e}")
-    for n, sc in cpu["stats"].items():
-        err = float((gpu["stats"][n] - sc).abs().max())
+            fail(f"{tag}: train step {got_name} vs {ref_name}: updated {n} "
+                 f"differs by {perr:.3e}")
+    for n, sc in ref["stats"].items():
+        err = float((got["stats"][n] - sc).abs().max())
         stat_err = max(stat_err, err)
-        if not torch.allclose(gpu["stats"][n], sc, rtol=1e-4, atol=1e-4):
-            fail(f"{tag}: train step card vs CPU: running statistic {n} "
-                 f"differs by {err:.3e}")
-    if not math.isfinite(gpu["loss"]) or loss_err > TRAIN_LOSS_RTOL:
-        fail(f"{tag}: train step card vs CPU: loss {gpu['loss']} vs "
-             f"{cpu['loss']}")
-    pinned = "; ".join(f"{n} call {c}: {k} at |x| <= {x:.2e}"
-                       for n, c, k, x in pins) or "none"
-    log(f"[{tag}] f32 B=8 full width, one step: loss card "
-        f"{gpu['loss']:.7f} cpu {cpu['loss']:.7f} (rel {loss_err:.2e}, "
-        f"limit {TRAIN_LOSS_RTOL}); worst gradient diff {grad_err:.2e} of "
-        f"its tensor's scale where that exceeds 1e-5 (limit "
-        f"{TRAIN_GRAD_TOL}), {near_zero_err:.2e} absolute in the others "
-        f"(limit 1e-7 beyond the relative one); updated params "
-        f"{param_err:.2e} where |grad| > 1e-5 ({n_compared} elements; "
-        f"limit {TRAIN_PARAM_ATOL}); running stats {stat_err:.2e}; ReLU "
-        f"inputs set to the CPU's sign: {pinned}; card "
-        f"{gpu['seconds']:.2f}s cpu {cpu['seconds']:.2f}s")
+        if not torch.allclose(got["stats"][n], sc, rtol=1e-4, atol=1e-4):
+            fail(f"{tag}: train step {got_name} vs {ref_name}: running "
+                 f"statistic {n} differs by {err:.3e}")
+    if not math.isfinite(got["loss"]) or loss_err > TRAIN_LOSS_RTOL:
+        fail(f"{tag}: train step {got_name} vs {ref_name}: loss "
+             f"{got['loss']} vs {ref['loss']}")
+    return (f"loss {got_name} {got['loss']:.7f} {ref_name} "
+            f"{ref['loss']:.7f} (rel {loss_err:.2e}, limit "
+            f"{TRAIN_LOSS_RTOL}); worst gradient diff {grad_err:.2e} of its "
+            f"tensor's scale where that exceeds 1e-5 (limit "
+            f"{TRAIN_GRAD_TOL}), {near_zero_err:.2e} absolute in the others "
+            f"(limit 1e-7 beyond the relative one); updated params "
+            f"{param_err:.2e} where |grad| > 1e-5 ({n_compared} elements; "
+            f"limit {TRAIN_PARAM_ATOL}); running stats {stat_err:.2e}")
 
 
 SMOKE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -1314,6 +1357,582 @@ def phase_cli_lcgn(data):
         f"{time.perf_counter() - t0:.1f}s")
 
 
+# --- phase 13: the multi-device paths ----------------------------------------
+
+MULTI_DIR = SMOKE_DIR / "multi"
+
+
+def phase_shard_kernels(dev):
+    """13a: both kernels against their plain versions on edge rank 0's share
+    of phase 2's B=512 batch, sharded by destination over K=2 and K=4 ranks
+    (the shapes (npg, epg_loc) that an edge-sharded step gives them), in
+    f32 and bf16, with the 'graph' shift given as the max over all K shares
+    (graph_logit_max, as the edge-sharded GAT layer passes it); max error
+    and cold-L2 device time beside the least-bytes bound."""
+    import torch
+    from graphvqa_tpu_torch.core.native import shard_edges_by_dst_native
+    from graphvqa_tpu_torch.ops.dense import dense_local_indices
+    from graphvqa_tpu_torch.ops.gat_round import (
+        gat_round, gat_round_backward, gat_round_backward_reference,
+        gat_round_reference, graph_logit_max)
+    from graphvqa_tpu_torch.parallel.edge_sharded import local_shard
+    base = kernel_inputs(dev)
+    al, ar = base["al"], base["ar"]
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    names = ("d_xw", "d_alpha_l", "d_alpha_r", "d_alpha_e", "d_ins")
+    graph = pack_main_graph()
+    results = {}
+    for k in (2, 4):
+        gen = torch.Generator(device=dev).manual_seed(10 + k)
+        sharded = shard_edges_by_dst_native(graph, k)
+        shares = []
+        for e in range(k):
+            g = local_shard(sharded, e, None).to(dev)
+            dl, sl = dense_local_indices(g)
+            epg = g.edges_per_graph
+            shares.append((dl, sl, g.edge_mask.reshape(B, epg).float(),
+                           torch.randn(B, epg, H, generator=gen, device=dev)))
+        gmax = torch.stack([graph_logit_max(dl, sl, m, al, ar, ae, npg=NPG)
+                            for dl, sl, m, ae in shares]).amax(dim=0)
+        dl, sl, mask, ae = shares[0]
+        epg = dl.shape[1]
+        args = (dl, sl, mask, al, ar, ae)
+        inp = dict(base, dl=dl, sl=sl, mask=mask)
+        grad32 = torch.randn(B * NPG, C, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            xw, ins = base["xw32"].to(dtype), base["ins32"].to(dtype)
+            grad = grad32.to(dtype)
+            kw = dict(npg=NPG, epg=epg, shift_max=gmax)
+            got = gat_round(*args, xw, ins, **kw)
+            want = gat_round_reference(*args, xw.float(), ins.float(), **kw)
+            bgot = gat_round_backward(grad, *args, xw, ins, None, **kw)
+            bwant = gat_round_backward_reference(
+                grad.float(), *args, xw.float(), ins.float(), None, **kw)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[name]
+            diff = (got.float() - want).abs()
+            f_err = float(diff.max())
+            if (not torch.isfinite(got).all()
+                    or bool((diff > atol + rtol * want.abs()).any())):
+                fail(f"gat_round on a K={k} share {name}: max abs err "
+                     f"{f_err:.3e}")
+            b_err = 0.0
+            for out_name, gb, wb in zip(names, bgot, bwant):
+                batol, brtol = (TOL[name] if out_name in ("d_xw", "d_ins")
+                                else BWD_F32_TOL)
+                d = (gb.float() - wb.float()).abs()
+                b_err = max(b_err, float(d.max()))
+                if (not torch.isfinite(gb).all()
+                        or bool((d > batol + brtol * wb.float().abs()).any())):
+                    fail(f"gat_round_backward on a K={k} share {name}: "
+                         f"{out_name} max abs err {float(d.max()):.3e}")
+            f_ms = device_median_ms(lambda: gat_round(*args, xw, ins, **kw),
+                                    "gat_round_kernel", flush)
+            b_ms = device_median_ms(
+                lambda: gat_round_backward(grad, *args, xw, ins, None, **kw),
+                "gat_round_backward_kernel", flush)
+            if f_ms is None or b_ms is None:
+                fail(f"torch.profiler recorded no kernel time on a K={k} "
+                     f"share")
+            b_bytes, n_edges, n_dst = backward_least_bytes(
+                inp, dtype.itemsize, False, epg)
+            f_bytes = least_bytes(inp, dtype.itemsize, True, epg)
+            f_flops = (2 * H * C + 12 * H) * n_edges + 2 * H * C * n_dst
+            b_flops = 4 * H * C * n_edges + 4 * H * C * n_dst + 24 * H * n_edges
+            bounds = {}
+            for way, nbytes, flops in (("forward", f_bytes, f_flops),
+                                       ("backward", b_bytes, b_flops)):
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_F32_FLOPS * 1e3
+                bounds[way] = (max(t_bytes, t_ops),
+                               "bytes" if t_bytes >= t_ops else "operations")
+            results[(k, name)] = dict(
+                epg=epg, forward_err=f_err, backward_err=b_err,
+                forward_ms=f_ms, backward_ms=b_ms, bounds=bounds)
+            log(f"[multi kernels] K={k} share 0 at (npg, epg_loc) = ({NPG}, "
+                f"{epg}), B={B}, {n_edges} real edges, {name}: forward err "
+                f"{f_err:.2e} device {f_ms * 1e3:.2f}us cold-L2 (bound "
+                f"{bounds['forward'][0] * 1e3:.2f}us, "
+                f"{100 * bounds['forward'][0] / f_ms:.1f}%); backward err "
+                f"{b_err:.2e} device {b_ms * 1e3:.2f}us (bound "
+                f"{bounds['backward'][0] * 1e3:.2f}us, "
+                f"{100 * bounds['backward'][0] / b_ms:.1f}%)")
+    return results
+
+
+def f32_config(base):
+    """``base`` in float32 with every dropout 0 (phase 8's check step)."""
+    import dataclasses
+    mc = base.model
+    return dataclasses.replace(base, model=dataclasses.replace(
+        mc, dtype="float32", classifier_dropout=0.0,
+        transformer=dataclasses.replace(mc.transformer, dropout=0.0),
+        engine=dataclasses.replace(mc.engine, dropout=0.0)))
+
+
+def step_record(model, state, m, seconds=0.0):
+    """A train step's result on the CPU: loss, each parameter's own .grad
+    (zeros for none), the parameters and the running statistics."""
+    import torch
+    return dict(
+        loss=float(m["total"]), seconds=seconds,
+        grads={n: (p.grad if p.grad is not None
+                   else torch.zeros_like(p)).cpu()
+               for n, p in model.named_parameters()},
+        params={n: p.detach().cpu() for n, p in model.named_parameters()},
+        stats={n: b.cpu() for n, b in model.named_buffers()
+               if n.endswith(("running_mean", "running_var"))},
+        metrics={k: float(v) for k, v in m.items()})
+
+
+def _rank_main(rank, world, cases):
+    """A spawned rank: gloo on the one card, the cases in order."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{MULTI_DIR}/store{world}", rank=rank,
+        world_size=world)
+    try:
+        for case in cases:
+            RANK_CASES[case["kind"]](rank, case)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_check(rank, case):
+    """One float32 step of the data-parallel or edge-sharded train step on
+    this rank's batch, under deterministic algorithms; saves its record
+    (with the rank's own pre-reduce gradient) and the ReLU pins."""
+    import torch
+    from graphvqa_tpu_torch.parallel.edge_sharded import (
+        make_dp_edge_train_step, prepare_dp_edge_batch)
+    from graphvqa_tpu_torch.parallel.mesh import data_seed, make_mesh
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(case["data"], case["edge"])
+    cfg = case["cfg"]
+    model = full_model(cfg, dev)
+    batch = qa_batch(cfg, case["batch"], seed=case["seed"] + mesh.data_rank)
+    rows = None
+    if mesh.edge > 1:
+        rows = share_edge_rows(batch.graphs, mesh).to(dev)
+        batch = prepare_dp_edge_batch([batch], mesh)[0]
+    batch = batch.to(dev)
+    pins = []
+    if case.get("relu_ref"):
+        _, pins = watch_relu_inputs(
+            model, torch.load(case["relu_ref"], weights_only=False),
+            f"multi {case['name']} rank {rank}", edge_rows=rows)
+    state = create_train_state(model, lr=cfg.train.lr)
+    step = make_dp_edge_train_step(model, cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(data_seed(0, mesh))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(False)
+    rec = step_record(model, state, m)
+    rec.update(pins=pins, epg_loc=batch.graphs.edges_per_graph)
+    torch.save(rec, MULTI_DIR / f"{case['name']}_rank{rank}.pt")
+
+
+def share_edge_rows(graphs, mesh):
+    """[B*epg_loc] int64: the batch's edge index of each slot of this edge
+    rank's share (-1 on padding), by sharding the edge indices themselves
+    in place of the edge tokens."""
+    import dataclasses
+    import torch
+    from graphvqa_tpu_torch.core.native import shard_edges_by_dst_native
+    from graphvqa_tpu_torch.parallel.edge_sharded import local_shard
+    ids = torch.arange(graphs.edges_pad, dtype=torch.int32)[:, None]
+    share = local_shard(shard_edges_by_dst_native(
+        dataclasses.replace(graphs, edge_tokens=ids), mesh.edge),
+        mesh.edge_rank, None)
+    return torch.where(share.edge_mask, share.edge_tokens[:, 0].long(), -1)
+
+
+def _rank_time(rank, case):
+    """bf16 train steps at full width on this rank's batch: 1 warm-up and
+    ``steps`` counted ones, the GAT launches counted over them."""
+    import torch
+    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.parallel.data_parallel import reduce_gradients
+    from graphvqa_tpu_torch.parallel.edge_sharded import (
+        make_dp_edge_train_step, prepare_dp_edge_batch)
+    from graphvqa_tpu_torch.parallel.mesh import data_seed, make_mesh
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(case["data"], case["edge"])
+    cfg = case["cfg"]
+    model = full_model(cfg, dev)
+    batch = qa_batch(cfg, case["batch"], seed=case["seed"] + mesh.data_rank)
+    if mesh.edge > 1:
+        batch = prepare_dp_edge_batch([batch], mesh)[0]
+    batch = batch.to(dev)
+    tc = cfg.train
+    state = create_train_state(model, lr=tc.lr, weight_decay=tc.weight_decay)
+    step = make_dp_edge_train_step(model, cfg, mesh)
+    gen = torch.Generator(device=dev).manual_seed(data_seed(0, mesh))
+    if case["warmup"]:
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    gat_round.launches = gat_round_backward.launches = 0
+    times, losses = [], []
+    for _ in range(case["steps"]):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["total"]))
+    launches = gat_round.launches, gat_round_backward.launches
+    # the step's one gradient all-reduce alone (it also averages the
+    # running statistics, so the model is not used after this)
+    reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_gradients(model, mesh)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.save(dict(times=times, losses=losses, launches=launches,
+                    epg_loc=batch.graphs.edges_per_graph,
+                    reduce_ms=statistics.median(reduce_ms),
+                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30),
+               MULTI_DIR / f"{case['name']}_rank{rank}.pt")
+
+
+RANK_CASES = {"check": _rank_check, "time": _rank_time}
+
+
+def run_ranks(world, cases):
+    """``cases`` on ``world`` spawned gloo ranks sharing the card; each
+    rank's saved results by case name."""
+    import torch
+    import torch.multiprocessing as mp
+    (MULTI_DIR / f"store{world}").unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_rank_main, args=(world, cases), nprocs=world,
+                       join=True, start_method="spawn")
+    out = {c["name"]: [torch.load(MULTI_DIR / f"{c['name']}_rank{r}.pt",
+                                  weights_only=False) for r in range(world)]
+           for c in cases}
+    log(f"[multi] {world} ranks over gloo on one card: "
+        f"{', '.join(c['name'] for c in cases)} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def reference_step(cfg, dev, batch, relu_record=None):
+    """The single-process float32 train step on the card under
+    deterministic algorithms (``relu_record``: where to save its ReLU
+    inputs for watch_relu_inputs)."""
+    import torch
+    from graphvqa_tpu_torch.train.loop import make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    model = full_model(cfg, dev)
+    record = watch_relu_inputs(model)[0] if relu_record else None
+    state = create_train_state(model, lr=cfg.train.lr)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    _, m = make_train_step(model, cfg)(
+        state, batch.to(dev), torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.use_deterministic_algorithms(False)
+    rec = step_record(model, state, m)
+    if relu_record:
+        torch.save(record, relu_record)
+    del model, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _timing_line(tag, runs, rounds):
+    """Per-rank ms per step and launches of a 'time' case; fails on a
+    non-finite loss or launches other than ``rounds`` + ``rounds`` per
+    rank per step."""
+    parts = []
+    total = [0, 0]
+    for r, run in enumerate(runs):
+        steps = len(run["times"])
+        if run["launches"] != (rounds * steps, rounds * steps):
+            fail(f"{tag} rank {r}: gat_round / gat_round_backward launches "
+                 f"{run['launches']} in {steps} steps, expected {rounds} "
+                 f"each per step")
+        if not all(map(math.isfinite, run["losses"])):
+            fail(f"{tag} rank {r}: non-finite loss {run['losses']}")
+        total[0] += run["launches"][0]
+        total[1] += run["launches"][1]
+        parts.append(f"rank {r}: ms/step "
+                     f"{', '.join(f'{t * 1e3:.2f}' for t in run['times'])}, "
+                     f"loss {', '.join(f'{v:.5f}' for v in run['losses'])}, "
+                     f"epg_loc {run['epg_loc']}, the gradient all-reduce "
+                     f"alone {run['reduce_ms']:.1f} ms, peak "
+                     f"{run['peak_gib']:.2f} GiB")
+    log(f"[{tag}] " + "; ".join(parts) + f"; launches per rank per step "
+        f"{rounds} + {rounds}")
+    return total
+
+
+def phase_dp(dev):
+    """13b: the data-parallel step, gat_config() at full width, two ranks
+    of B=256 on the card. One float32 step: each rank's own gradient equals
+    the single-process step on its batch, and the updated parameters the
+    average-then-Adam of those two steps (phase 8's limits, and 1e-6 of each
+    tensor's scale where |gradient| > 1e-5); the running statistics their
+    mean. Then bf16 steps (1 warm-up, 3 counted) for ms per step per rank
+    and the GAT launches."""
+    import torch
+    from graphvqa_tpu_torch.config import gat_config
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    t0 = time.perf_counter()
+    cfg32, cfg = f32_config(gat_config()), gat_config()
+    Bd = B // 2
+    refs = [reference_step(cfg32, dev, qa_batch(cfg32, Bd, seed=300 + d))
+            for d in range(2)]
+    avg = {n: (refs[0]["grads"][n] + refs[1]["grads"][n]) / 2
+           for n in refs[0]["grads"]}
+    model = full_model(cfg32, dev)
+    state = create_train_state(model, lr=cfg32.train.lr)
+    state.apply_gradients({n: g.to(dev) for n, g in avg.items()})
+    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model, state
+    torch.cuda.empty_cache()
+    stats = {n: (refs[0]["stats"][n] + refs[1]["stats"][n]) / 2
+             for n in refs[0]["stats"]}
+    loss = (refs[0]["loss"] + refs[1]["loss"]) / 2
+    ranks = run_ranks(2, [
+        dict(kind="check", name="dp_check", data=2, edge=1, cfg=cfg32,
+             batch=Bd, seed=300),
+        dict(kind="time", name="dp_time", data=2, edge=1, cfg=cfg, batch=Bd,
+             seed=310, warmup=True, steps=3)])
+    lines = []
+    for d, got in enumerate(ranks["dp_check"]):
+        ref = dict(refs[d], params=params, stats=stats, loss=loss)
+        lines.append(hold_train_step(ref, got, f"multi dp rank {d}",
+                                     f"rank {d}", "one process",
+                                     cond_grads=avg))
+        worst = 0.0
+        for n, w in params.items():
+            cond = avg[n].abs() > 1e-5
+            if bool(cond.any()):
+                rel = float((got["params"][n] - w)[cond].abs().max()) / max(
+                    float(w.abs().max()), 1e-30)
+                worst = max(worst, rel)
+        if worst > 1e-6:
+            fail(f"multi dp rank {d}: updated parameters differ from the "
+                 f"average-then-Adam by {worst:.2e} of a tensor's scale")
+        lines[-1] += f"; params {worst:.2e} of their tensor's scale"
+    for d, line in enumerate(lines):
+        log(f"[multi dp] f32 B={Bd} per rank, rank {d} against one process "
+            f"(its own gradient before the reduce; the params against the "
+            f"average-then-Adam): {line}")
+    launches = _timing_line(f"multi dp bf16 B={Bd} per rank",
+                            ranks["dp_time"], gat_rounds(cfg))
+    log(f"[multi dp] phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def phase_edge(dev):
+    """13c: the edge-sharded step, gat_config() at full width, B=512 at data
+    1 x edge 2. One float32 step against the single-process step on the
+    card, held as phase 8 holds the card against the CPU (the ranks' ReLU
+    inputs whose sign differs at round-off set to the single process's);
+    the two ranks' gradient shares sum to its gradient. Then bf16 steps (1
+    warm-up, 3 counted): the epg_loc reached, ms per step, GAT launches;
+    then one data 2 x edge 2 step on 4 ranks (B=256 per data rank)."""
+    import torch
+    from graphvqa_tpu_torch.config import gat_config
+    t0 = time.perf_counter()
+    cfg32, cfg = f32_config(gat_config()), gat_config()
+    relu_ref = MULTI_DIR / "edge_relu_ref.pt"
+    ref = reference_step(cfg32, dev, qa_batch(cfg32, B, seed=400),
+                         relu_record=relu_ref)
+    ranks = run_ranks(2, [
+        dict(kind="check", name="edge_check", data=1, edge=2, cfg=cfg32,
+             batch=B, seed=400, relu_ref=str(relu_ref)),
+        dict(kind="time", name="edge_time", data=1, edge=2, cfg=cfg, batch=B,
+             seed=410, warmup=True, steps=3)])
+    relu_ref.unlink()
+    r0, r1 = ranks["edge_check"]
+    got = dict(r0, grads={n: r0["grads"][n] + r1["grads"][n]
+                          for n in r0["grads"]})
+    for n in r0["params"]:
+        if not torch.equal(r0["params"][n], r1["params"][n]):
+            fail(f"multi edge: the two edge ranks' {n} differ after a step")
+    line = hold_train_step(ref, got, "multi edge", "edge ranks",
+                           "one process")
+    pinned = "; ".join(f"rank {r} {n} call {c}: {k} at |x| <= {x:.2e}"
+                       for r, run in enumerate((r0, r1))
+                       for n, c, k, x in run["pins"]) or "none"
+    log(f"[multi edge] f32 B={B} data 1 x edge 2 (epg_loc {r0['epg_loc']}), "
+        f"the ranks' summed gradient shares against one process: {line}; "
+        f"ReLU inputs set to the single process's sign: {pinned}")
+    rounds = gat_rounds(cfg)
+    launches = _timing_line(f"multi edge bf16 B={B} data 1 x edge 2",
+                            ranks["edge_time"], rounds)
+    grid = run_ranks(4, [dict(kind="time", name="edge_2x2", data=2, edge=2,
+                              cfg=cfg, batch=B // 2, seed=420, warmup=False,
+                              steps=1)])
+    more = _timing_line(f"multi edge bf16 data 2 x edge 2, B={B // 2} per "
+                        f"data rank, first step", grid["edge_2x2"], rounds)
+    log(f"[multi edge] phase {time.perf_counter() - t0:.1f}s")
+    return [launches[0] + more[0], launches[1] + more[1]]
+
+
+def _run_torchrun(nproc, args, name, timeout=600):
+    """The port's train CLI under torchrun (--standalone) with ``nproc``
+    ranks; output to build/chip_smoke/<name>.log."""
+    return _run_cli(["torch.distributed.run", "--standalone",
+                     "--nproc_per_node", str(nproc), "-m",
+                     "graphvqa_tpu_torch.cli.train_cli"] + args, name,
+                    timeout)
+
+
+def phase_cli_dist(data):
+    """13d: the CLI under torchrun on phase 9's val split (1,024
+    questions): one rank on nccl (an epoch of 2 steps of B=512 with a
+    validation, then --resume --evaluate with the dumps), and
+    --data-parallel 2 with two ranks sharing the card over gloo (an epoch of
+    2 steps of B=256 per rank, then --evaluate over both ranks' shards,
+    whose gathered dump must hold every val question once)."""
+    t0 = time.perf_counter()
+    root = data["data"]
+    launches = [0, 0]
+    for tag, nproc, bsz, extra in (
+            ("nccl", 1, B, []),
+            ("gloo-dp2", 2, B // 2, ["--data-parallel", "2",
+                                     "--dist-backend", "gloo"])):
+        out = SMOKE_DIR / f"cli_{tag}"
+        common = ["--data-root", str(root), "--split", "val_balanced",
+                  "--val-split", "val_balanced", "--batch-size", str(bsz),
+                  "--print-freq", "1", "--output_dir", str(out)] + extra
+        train_out, train_s = _run_torchrun(nproc, common + [
+            "--epochs", "1", "--validate-every", "1", "--fast-validate", "1"],
+            f"cli_{tag}_train")
+        f_tr, b_tr = (int(v) for v in _last_match(
+            r"kernel launches \(train epoch 0\): gat_round (\d+), "
+            r"gat_round_backward (\d+)", train_out, "train launches"))
+        losses = [float(v) for v in re.findall(r"Loss (\S+) \(", train_out)]
+        if not losses or not all(map(math.isfinite, losses)):
+            fail(f"CLI {tag}: training losses {losses}")
+        if not (out / "ckpt" / "ckpt_0.pt").exists():
+            fail(f"CLI {tag}: no checkpoint")
+        eval_out, eval_s = _run_torchrun(nproc, common + [
+            "--resume", str(out / "ckpt"), "--evaluate", "--dump-result",
+            "--dump-attentions", "--fast-validate", str(1024 // (bsz * nproc))
+        ], f"cli_{tag}_evaluate")
+        if "resumed from" not in eval_out:
+            fail(f"CLI {tag}: did not resume")
+        dump = json.loads((out / "dump_results.json").read_text())
+        atts = json.loads((out / "dump_attentions.json").read_text())
+        val = json.loads((root / "questions" /
+                          "val_balanced_programs.json").read_text())
+        want = {str(q[3]) for q in val}
+        if set(dump) != want or len(atts) != len(want):
+            fail(f"CLI {tag}: the gathered dumps hold {len(dump)} results "
+                 f"/ {len(atts)} attention rows for {len(want)} questions")
+        res = _last_match(r"val_balanced (\{.*\})", eval_out, "evaluate result")
+        launches[0] += f_tr
+        launches[1] += b_tr
+        log(f"[multi cli {tag}] torchrun --nproc_per_node {nproc}, B={bsz} "
+            f"per rank: train losses {', '.join(f'{v:.5f}' for v in losses)},"
+            f" rank 0's launches gat_round {f_tr} gat_round_backward {b_tr}; "
+            f"evaluate: {len(dump)} results and {len(atts)} attention rows "
+            f"gathered, each val question once, {res}; processes "
+            f"{train_s:.1f}s + {eval_s:.1f}s")
+    log(f"[multi cli] phase {time.perf_counter() - t0:.1f}s")
+    return launches
+
+
+def phase_convert(dev, data):
+    """13e: a reference-format checkpoint ({'model': state_dict}) of the
+    seeded full-width gat model goes through convert_ckpt_cli; the restored
+    model gives the saved model's logits on the card, and the CLI's
+    --resume --evaluate the saved model's predictions."""
+    import argparse
+    import torch
+    from graphvqa_tpu_torch.cli import convert_ckpt_cli, train_cli
+    from graphvqa_tpu_torch.data import (
+        GQADataset, build_scene_graph_vocab, build_text_vocab, tokenize)
+    from graphvqa_tpu_torch.data.vocab import load_answer_maps
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.train.checkpoint import restore_checkpoint
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    t0 = time.perf_counter()
+    root, out = data["data"], SMOKE_DIR / "convert"
+    out.mkdir(parents=True, exist_ok=True)
+    common = ["--data-root", str(root), "--split", "val_balanced",
+              "--val-split", "val_balanced", "--batch-size", str(B),
+              "--output_dir", str(out)]
+    args = train_cli.get_args_parser().parse_args(common)
+    programs = root / "questions" / "val_balanced_programs.json"
+    text_vocab = build_text_vocab(json.loads(programs.read_text()), tokenize)
+    sg_vocab = build_scene_graph_vocab()
+    cfg = train_cli.build_config(args, len(text_vocab), len(sg_vocab))
+    model = build_model(cfg.model, device=dev, seed=11).eval()
+    torch.save({"model": model.state_dict(), "epoch": 2},
+               out / "reference.pth")
+    parser = argparse.ArgumentParser(
+        parents=[convert_ckpt_cli.get_args_parser()])
+    convert_ckpt_cli.main(parser.parse_args([
+        "--torch-ckpt", str(out / "reference.pth"), "--out",
+        str(out / "ckpt")]))
+    fresh = build_model(cfg.model, device=dev, seed=12).eval()
+    state, start = restore_checkpoint(out / "ckpt", create_train_state(fresh))
+    if (state.epoch, start) != (2, 3):
+        fail(f"convert: restored epoch {state.epoch}, start {start}")
+    ds = GQADataset(programs, root / "sceneGraphs" / "val_sceneGraphs.json",
+                    text_vocab, sg_vocab)
+    meta, batch = next(iter(ds.iter_batches(cfg.batch)))
+    batch = batch.to(dev)
+    with torch.inference_mode():
+        want = model.sample(batch).short_answer_logits
+        got = fresh.sample(batch).short_answer_logits
+    if not torch.equal(got, want):
+        fail(f"convert: restored logits differ by "
+             f"{float((got - want).abs().max()):.3e}")
+    eval_out, eval_s = _run_cli(["graphvqa_tpu_torch.cli.train_cli"] + common
+                                + ["--resume", str(out / "ckpt"),
+                                   "--evaluate", "--dump-result",
+                                   "--fast-validate", "1"], "cli_convert")
+    if "resumed from" not in eval_out:
+        fail("convert: the CLI did not resume the converted checkpoint")
+    dump = json.loads((out / "dump_results.json").read_text())
+    _, label2ans = load_answer_maps()
+    top2 = want.float().topk(2, dim=-1).values
+    same = checked = 0
+    for b, qid in enumerate(meta["question_ids"]):
+        if float(top2[b, 0] - top2[b, 1]) <= PARITY_ATOL:
+            continue
+        checked += 1
+        same += dump[str(qid)]["prediction"] == label2ans[int(
+            want[b].argmax())]
+    if same != checked or len(dump) != B:
+        fail(f"convert: the CLI's predictions match the saved model's on "
+             f"{same} of {checked} questions ({len(dump)} dumped)")
+    log(f"[multi convert] reference checkpoint -> convert_ckpt_cli -> "
+        f"restore: logits equal (bitwise) on B={B}; --resume --evaluate: "
+        f"{len(dump)} questions, predictions equal the saved model's on "
+        f"{same} of {checked} (those whose top two logits differ by more "
+        f"than {PARITY_ATOL}); process {eval_s:.1f}s; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    del model, fresh
+    torch.cuda.empty_cache()
+
+
+def phase_multi(dev, data):
+    """Phase 13: the multi-device paths on the one card."""
+    MULTI_DIR.mkdir(parents=True, exist_ok=True)
+    kernels = phase_shard_kernels(dev)
+    dp = phase_dp(dev)
+    edge = phase_edge(dev)
+    cli = phase_cli_dist(data)
+    phase_convert(dev, data)
+    return dict(kernels=kernels, dp=dp, edge=edge, cli=cli)
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -1381,6 +2000,8 @@ def main() -> None:
     done("11 cli")
     families = phase_families(dev, data)
     done("12 families")
+    multi = phase_multi(dev, data)
+    done("13 multi")
 
     card = card_line()
     fwd = kernel[("bfloat16", "graph", True)]
@@ -1393,9 +2014,14 @@ def main() -> None:
         "launches_by_path": {"serve": serve_launches, "train": train_fwd,
                              "cli": cli["forward"],
                              "onlysg": families["onlysg"]["forward"],
-                             "exec": families["exec"]["forward"]},
+                             "exec": families["exec"]["forward"],
+                             "dp": multi["dp"][0], "edge": multi["edge"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ladder_max_abs_err": ladder["forward"],
+        "shard_max_abs_err": max(r["forward_err"]
+                                 for r in multi["kernels"].values()),
+        "shard_ms": {f"K={k} {n}": r["forward_ms"]
+                     for (k, n), r in multi["kernels"].items()},
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": None}, {
@@ -1406,9 +2032,14 @@ def main() -> None:
         "launches": train_bwd,
         "launches_by_path": {"train": train_bwd, "cli": cli["backward"],
                              "onlysg": families["onlysg"]["backward"],
-                             "exec": families["exec"]["backward"]},
+                             "exec": families["exec"]["backward"],
+                             "dp": multi["dp"][1], "edge": multi["edge"][1]},
         "max_abs_err": max(r["max_abs_err"] for r in backward.values()),
         "ladder_max_abs_err": ladder["backward"],
+        "shard_max_abs_err": max(r["backward_err"]
+                                 for r in multi["kernels"].values()),
+        "shard_ms": {f"K={k} {n}": r["backward_ms"]
+                     for (k, n), r in multi["kernels"].items()},
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": None}]}

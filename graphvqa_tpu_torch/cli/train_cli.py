@@ -24,9 +24,22 @@ family of the JAX package (gat, gcn, gine, lcgn, onlysg), each with its
 configuration's losses, and ``--use-execution-engine`` adds the recurrent
 execution engine with its bitmap loss and meters; LCGN draws its context
 features from a generator seeded with ``--seed`` + 2. ``--compile-cache``
-and ``--prng`` name JAX machinery and do nothing here. ``--data-parallel``
-or ``--edge-parallel`` above 1 (multi-GPU, not ported yet) exits with an
-error that names its ROADMAP item (Queue 1 item 6).
+and ``--prng`` name JAX machinery and do nothing here.
+
+Several GPUs: launch one process per rank with torchrun, and split the
+ranks into ``--data-parallel`` D x ``--edge-parallel`` K = WORLD_SIZE:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m graphvqa_tpu_torch.cli.train_cli --data-parallel 2 \
+        --edge-parallel 2 ...
+
+Each data rank trains and evaluates its own shard of the batches
+(``parallel/data_parallel.py``); the K ranks of a data index share its
+batches, each holding the edges of the destinations it owns
+(``parallel/edge_sharded.py``, dense layout only, ``--nodes-per-graph``
+divisible by K). NCCL gives each rank a card of its own; ``--dist-backend
+gloo`` lets ranks share cards (and is the backend on the CPU). Rank 0 alone
+prints, logs and writes the checkpoints and the dumps.
 """
 from __future__ import annotations
 
@@ -107,10 +120,15 @@ def get_args_parser():
     p.add_argument("--program-len", default=16, type=int)
     p.add_argument("--full-answer-len", default=20, type=int)
     p.add_argument("--data-parallel", default=1, type=int,
-                   help="data shards (GPUs); above 1 is not ported yet")
+                   help="data shards: ranks that train on batches of their "
+                        "own; D x --edge-parallel must be WORLD_SIZE")
     p.add_argument("--edge-parallel", default=1, type=int,
-                   help="edge shards per data shard; above 1 is not ported "
-                        "yet")
+                   help="edge shards per data shard: ranks that share a "
+                        "batch, each holding its owned destinations' edges "
+                        "(dense layout)")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend (default: nccl on cuda, "
+                        "gloo on cpu); gloo lets ranks share a card")
     p.add_argument("--steps-per-dispatch", default=1, type=int, metavar="K",
                    help="K optimizer steps per train-step call, over K "
                         "batches; the same as K single steps")
@@ -147,15 +165,36 @@ def get_args_parser():
     return p
 
 
-def _check_ported(args) -> None:
-    """Exit with the ROADMAP item of a feature that is not ported yet."""
-    if args.data_parallel > 1 or args.edge_parallel > 1:
-        raise SystemExit("not ported yet: --data-parallel/--edge-parallel "
-                         "above 1: multi-GPU is ROADMAP.md Queue 1 item 6")
+def _check_jax_flags(args) -> None:
     for flag, given in (("--compile-cache", args.compile_cache),
                         ("--prng", args.prng)):
         if given:
             print(f"{flag} names JAX machinery and does nothing here")
+
+
+def _check_mesh(args, world: int) -> None:
+    """Exit on a rank grid that does not fit the world or the layout."""
+    n = args.data_parallel * args.edge_parallel
+    if n != world:
+        raise SystemExit(
+            f"--data-parallel {args.data_parallel} x --edge-parallel "
+            f"{args.edge_parallel} needs {n} ranks, have {world} "
+            f"(WORLD_SIZE; launch with torchrun --nproc_per_node {n})")
+    if args.edge_parallel > 1:
+        if args.layout != "dense":
+            raise SystemExit("--edge-parallel requires --layout dense")
+        if args.nodes_per_graph % args.edge_parallel:
+            raise SystemExit(
+                f"--nodes-per-graph {args.nodes_per_graph} must be "
+                f"divisible by --edge-parallel {args.edge_parallel}")
+
+
+def _quiet_unless(main: bool) -> None:
+    """Silence print() on every rank but rank 0 (the reference's
+    setup_for_distributed)."""
+    import builtins
+    if not main:
+        builtins.print = lambda *args, **kwargs: None
 
 
 def _load_glove(args, text_vocab, sg_vocab, out_dir):
@@ -192,6 +231,18 @@ def _load_glove(args, text_vocab, sg_vocab, out_dir):
             cached("glove_sg.npy", sg_vocab) if args.glove_sg else None)
 
 
+def tiny_widths(model_cfg):
+    """``--tiny``: the debug-scale widths of tests and smoke runs."""
+    return dataclasses.replace(
+        model_cfg,
+        text=dataclasses.replace(model_cfg.text, emb_dim=48),
+        scene=dataclasses.replace(model_cfg.scene, emb_dim=48),
+        transformer=dataclasses.replace(
+            model_cfg.transformer, hidden_dim=64, num_heads=4, ffn_dim=128,
+            num_layers=2),
+        classifier_hidden=64)
+
+
 def build_config(args, text_vocab_size: int, sg_vocab_size: int):
     """The port's Config for these flags (``--model``'s configuration with
     the overrides the JAX CLI applies)."""
@@ -207,14 +258,7 @@ def build_config(args, text_vocab_size: int, sg_vocab_size: int):
         model_cfg = dataclasses.replace(model_cfg, engine=dataclasses.replace(
             model_cfg.engine, num_rounds=args.rounds))
     if args.tiny:
-        model_cfg = dataclasses.replace(
-            model_cfg,
-            text=dataclasses.replace(model_cfg.text, emb_dim=48),
-            scene=dataclasses.replace(model_cfg.scene, emb_dim=48),
-            transformer=dataclasses.replace(
-                model_cfg.transformer, hidden_dim=64, num_heads=4,
-                ffn_dim=128, num_layers=2),
-            classifier_hidden=64)
+        model_cfg = tiny_widths(model_cfg)
     if args.dropout is not None:
         model_cfg = dataclasses.replace(
             model_cfg,
@@ -266,7 +310,8 @@ def _merged_meta(metas):
 def main(args):
     import torch
 
-    from graphvqa_tpu_torch.core.device import resolve_device
+    import torch.distributed as dist
+
     from graphvqa_tpu_torch.core.native import packer_name
     from graphvqa_tpu_torch.data import (
         GQADataset, build_scene_graph_vocab, build_text_vocab, tokenize)
@@ -276,6 +321,11 @@ def main(args):
     from graphvqa_tpu_torch.models.pipeline import build_model
     from graphvqa_tpu_torch.models.pretrained import (
         inject_pretrained_embeddings)
+    from graphvqa_tpu_torch.parallel.edge_sharded import (
+        make_dp_edge_train_step, make_edge_eval_step, prepare_dp_edge_batch,
+        prepare_edge_eval_batch)
+    from graphvqa_tpu_torch.parallel.mesh import (
+        data_seed, make_mesh, maybe_init_distributed)
     from graphvqa_tpu_torch.train.checkpoint import (
         restore_checkpoint, save_checkpoint)
     from graphvqa_tpu_torch.train.logging_utils import get_sha
@@ -283,16 +333,21 @@ def main(args):
         make_eval_step, make_train_step, train_one_epoch, validate)
     from graphvqa_tpu_torch.train.train_state import create_train_state
 
-    _check_ported(args)
-    dev = resolve_device(args.device)
+    _check_jax_flags(args)
+    dev = maybe_init_distributed(args.device, args.dist_backend)
+    _check_mesh(args, dist.get_world_size() if dist.is_initialized() else 1)
+    mesh = make_mesh(args.data_parallel, args.edge_parallel)
+    _quiet_unless(mesh.is_main)
+    D, E = mesh.data, mesh.edge
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
 
     out_dir = pathlib.Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    logging.basicConfig(filename=out_dir / f"log-{args.model}.txt",
-                        level=logging.INFO, force=True)
+    if mesh.is_main:
+        logging.basicConfig(filename=out_dir / f"log-{args.model}.txt",
+                            level=logging.INFO, force=True)
     stamp = f"git: {get_sha()}"
     print(stamp)
     logging.info(stamp)
@@ -310,12 +365,16 @@ def main(args):
 
     sg_vocab = build_scene_graph_vocab()
     vocab_path = out_dir / "text_vocab.json"
-    if vocab_path.exists():
+    saved_vocab = vocab_path.exists()
+    if dist.is_initialized():
+        dist.barrier()      # every rank looked before rank 0 writes
+    if saved_vocab:
         text_vocab = Vocab.load(vocab_path)
     else:
         train_data = json.loads(programs_path(args.split).read_text())
         text_vocab = build_text_vocab(train_data, tokenize)
-        text_vocab.save(vocab_path)
+        if mesh.is_main:
+            text_vocab.save(vocab_path)
     print(f"text vocab: {len(text_vocab)} | sg vocab: {len(sg_vocab)}")
     cfg = build_config(args, len(text_vocab), len(sg_vocab))
 
@@ -338,16 +397,25 @@ def main(args):
     if args.resume:
         state, start_epoch = restore_checkpoint(args.resume, state)
         print(f"resumed from {args.resume} at epoch {start_epoch}")
-    generator = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    # seeded by the data rank: the edge ranks of a data index draw alike
+    generator = torch.Generator(device=dev).manual_seed(
+        data_seed(args.seed + 3, mesh))
     # LCGN's context features, seeded as the JAX CLI seeds 'lcgn_ctx'
-    ctx_generator = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    ctx_generator = torch.Generator(device=dev).manual_seed(
+        data_seed(args.seed + 2, mesh))
     fast_validate = args.fast_validate or None
-    eval_step = make_eval_step(model, cfg)
+    eval_step = (make_edge_eval_step(model, cfg, mesh) if E > 1
+                 else make_eval_step(model, cfg))
     val_ds = GQADataset(programs_path(args.val_split),
                         scenes_path(args.val_split), text_vocab, sg_vocab)
 
     def eval_batches(ds):
-        return ((m, b.to(dev)) for m, b in ds.iter_batches(cfg.batch))
+        """This data rank's shard of ``ds``'s batches, on the device."""
+        for m, b in ds.iter_batches(cfg.batch, shard_index=mesh.data_rank,
+                                    num_shards=D):
+            if E > 1:
+                b = prepare_edge_eval_batch(b, mesh)
+            yield m, b.to(dev)
 
     if args.evaluate or args.evaluate_sets:
         for split in (args.evaluate_sets or [args.val_split]):
@@ -367,7 +435,7 @@ def main(args):
                     if args.dump_attentions else None),
                 scenes=ds.sg_data if args.dump_attentions else None,
                 max_batches=fast_validate, print_qualitative=True,
-                generator=ctx_generator)
+                generator=ctx_generator, mesh=mesh)
             print(split, res)
             _print_launches(f"evaluate {split}", before)
         return
@@ -381,26 +449,32 @@ def main(args):
           f"{time.perf_counter() - t0:.1f}s")
 
     K = max(args.steps_per_dispatch, 1)
-    train_step = make_train_step(model, cfg, steps_per_dispatch=K)
+    train_step = (make_dp_edge_train_step(model, cfg, mesh,
+                                          steps_per_dispatch=K)
+                  if mesh.size > 1 else
+                  make_train_step(model, cfg, steps_per_dispatch=K))
 
     def batches_fn(epoch):
+        """This data rank's shard of the epoch, K batches per step."""
         it = train_ds.iter_batches(
             cfg.batch, shuffle=True, seed=args.seed + epoch, drop_last=True,
+            shard_index=mesh.data_rank, num_shards=D,
             num_workers=args.workers, size_bucket_windows=args.size_bucket,
             permute_group=K)
-        if K == 1:
-            for m, b in it:
-                yield m, b.to(dev)
-            return
         group, metas = [], []
         for m, b in it:
-            group.append(b.to(dev))
+            group.append(b)
             metas.append(m)
-            if len(group) == K:
-                yield _merged_meta(metas), group
-                group, metas = [], []
+            if len(group) < K:
+                continue
+            if E > 1:
+                group = prepare_dp_edge_batch(group, mesh)
+            group = [g.to(dev) for g in group]
+            yield ((metas[0], group[0]) if K == 1
+                   else (_merged_meta(metas), group))
+            group, metas = [], []
 
-    steps_per_epoch = len(train_ds) // (args.batch_size * K)
+    steps_per_epoch = len(train_ds) // D // (args.batch_size * K)
     for epoch in range(start_epoch, args.epochs):
         stats_before, before = dict(collate_stats), _launches()
         state.epoch = epoch
@@ -422,15 +496,17 @@ def main(args):
                            text_vocab=text_vocab, label2ans=label2ans,
                            print_freq=args.print_freq,
                            max_batches=fast_validate, print_qualitative=True,
-                           generator=ctx_generator)
+                           generator=ctx_generator, mesh=mesh)
             print(args.val_split, res)
             _print_launches(f"validate epoch {epoch}", before)
-        save_checkpoint(out_dir / "ckpt", state)
-        # archival copies at the lr-drop and 100-epoch marks
-        if (epoch + 1) % args.lr_drop == 0:
-            save_checkpoint(out_dir / f"ckpt{epoch:04d}_lrdrop", state)
-        elif (epoch + 1) % 100 == 0:
-            save_checkpoint(out_dir / f"ckpt{epoch:04d}", state)
+        if mesh.is_main:
+            save_checkpoint(out_dir / "ckpt", state)
+            print(f"checkpoint saved: {out_dir / 'ckpt'} (epoch {epoch})")
+            # archival copies at the lr-drop and 100-epoch marks
+            if (epoch + 1) % args.lr_drop == 0:
+                save_checkpoint(out_dir / f"ckpt{epoch:04d}_lrdrop", state)
+            elif (epoch + 1) % 100 == 0:
+                save_checkpoint(out_dir / f"ckpt{epoch:04d}", state)
     train_ds.close()
 
 
@@ -438,3 +514,6 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser("GraphVQA (PyTorch)",
                                      parents=[get_args_parser()])
     main(parser.parse_args())
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -10,6 +10,11 @@ conventions:
     aggregation;
   * ``edge_sym_sign`` is -1 for dataset-added reverse edges, else +1.
 
+Under destination-ownership edge sharding (``parallel/edge_sharded.py``)
+a dense batch holds one edge rank's share of every graph's edges:
+``edges_per_graph`` is the shard's padding and ``edge_group`` the process
+group of the ranks that share the batch's nodes (None: not sharded).
+
 Two layouts, as in the JAX package. The dense layout (``nodes_per_graph``
 and ``edges_per_graph`` set): every graph is padded to exactly
 ``nodes_per_graph`` node rows and ``edges_per_graph`` edge rows, so graph g
@@ -26,6 +31,7 @@ zero-copy both ways.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -86,6 +92,7 @@ class GraphBatch:
     num_graphs: int
     nodes_per_graph: int = 0
     edges_per_graph: int = 0
+    edge_group: Optional[object] = None
 
     @property
     def nodes_pad(self) -> int:

@@ -2,7 +2,9 @@
 
 Port of ``graphvqa_tpu/core/native.py``: ``pack_graphs_native`` and
 ``pack_graphs_dense_native`` are byte-for-byte the numpy packers of
-``core/packing.py`` (the flat and the dense layout), in C++.
+``core/packing.py`` (the flat and the dense layout), in C++, and
+``shard_edges_by_dst_native`` is ``parallel/edge_sharded.py:
+shard_edges_by_dst``.
 
 The library is built at first use with ``g++`` from ``native/packing.cc``
 into ``build/graphvqa_tpu_torch/`` (never into ``native/``, which the JAX
@@ -19,6 +21,7 @@ Without a compiler the packers fall back to the numpy ones and log so once;
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import logging
 import os
@@ -95,6 +98,10 @@ def _load() -> Optional[ctypes.CDLL]:
         fn.restype = ctypes.c_int
     lib.gp_pack.argtypes = _PACK_ARGS
     lib.gp_pack_dense.argtypes = [ctypes.c_int32] + _PACK_ARGS
+    lib.gp_shard_by_dst.restype = ctypes.c_int
+    lib.gp_shard_by_dst.argtypes = (
+        [ctypes.c_int32] * 6 + [_i32p, _i32p, _u8p, _i32p, _f32p]
+        + [_i32p, _i32p, _i32p, _u8p, _f32p])
     _State.lib, _State.path = lib, so
     logging.info("collate packer: native (%s)", so)
     return lib
@@ -207,3 +214,60 @@ def pack_graphs_dense_native(samples: Sequence[GraphSample],
     return _call(lib.gp_pack_dense, (len(samples), B), samples, B * npg,
                  B * epg, (npg, epg), max_steps, num_graphs=B,
                  nodes_per_graph=npg, edges_per_graph=epg)
+
+
+def shard_edges_by_dst_native(graphs: GraphBatch, k: int,
+                              edges_per_shard: Optional[int] = None
+                              ) -> GraphBatch:
+    """Native ``shard_edges_by_dst`` (``gp_shard_by_dst``): the same
+    [k, B*epg_loc] edge fields. Without ``edges_per_shard`` the padding
+    starts at ``epg // k`` and doubles until every bucket fits, as the numpy
+    version's does; with it, a bucket that does not fit raises."""
+    from graphvqa_tpu_torch.parallel.edge_sharded import shard_edges_by_dst
+    lib = _load()
+    if lib is None:
+        return shard_edges_by_dst(graphs, k, edges_per_shard)
+    B, npg, epg = (graphs.num_graphs, graphs.nodes_per_graph,
+                   graphs.edges_per_graph)
+    if not graphs.has_dense_layout or npg % k:
+        raise ValueError(f"edge sharding needs the dense layout and "
+                         f"nodes_per_graph={npg} divisible by k={k}")
+
+    def c(t, dtype):
+        return np.ascontiguousarray(t.numpy(), dtype)
+
+    src, dst = c(graphs.edge_src, np.int32), c(graphs.edge_dst, np.int32)
+    mask = c(graphs.edge_mask, np.uint8)
+    etok = c(graphs.edge_tokens, np.int32).reshape(B * epg, -1)
+    esym = c(graphs.edge_sym_sign, np.float32)
+    etok_w = etok.shape[1]
+    epg_loc = edges_per_shard or max(epg // k, 1)
+    while True:
+        out = [np.empty((k, B, epg_loc), np.int32),
+               np.empty((k, B, epg_loc), np.int32),
+               np.empty((k, B, epg_loc, etok_w), np.int32),
+               np.empty((k, B, epg_loc), np.uint8),
+               np.empty((k, B, epg_loc), np.float32)]
+        ret = lib.gp_shard_by_dst(
+            B, npg, epg, k, epg_loc, etok_w,
+            _ptr(src, _i32p), _ptr(dst, _i32p), _ptr(mask, _u8p),
+            _ptr(etok, _i32p), _ptr(esym, _f32p),
+            *(_ptr(a, ty) for a, ty in zip(
+                out, (_i32p, _i32p, _i32p, _u8p, _f32p))))
+        if ret == 0:
+            break
+        if edges_per_shard is not None:
+            raise ValueError(
+                f"edge shard bucket overflow: a (graph, shard) needs {-ret} "
+                f"slots > edges_per_shard={epg_loc}")
+        while epg_loc < -ret:
+            epg_loc = min(epg_loc * 2, epg)
+    o_src, o_dst, o_tok, o_mask, o_sym = out
+    t = torch.from_numpy
+    return dataclasses.replace(
+        graphs,
+        edge_src=t(o_src.reshape(k, B * epg_loc)),
+        edge_dst=t(o_dst.reshape(k, B * epg_loc)),
+        edge_tokens=t(o_tok.reshape(k, B * epg_loc, etok_w)),
+        edge_mask=t(o_mask.reshape(k, B * epg_loc).astype(bool)),
+        edge_sym_sign=t(o_sym.reshape(k, B * epg_loc)))

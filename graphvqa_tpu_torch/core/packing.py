@@ -2,7 +2,8 @@
 
 Port of ``graphvqa_tpu/core/packing.py``: ``pack_graphs`` (the flat layout)
 with ``pick_bucket``, ``pack_graphs_dense`` (the dense layout) and the dense
-ladder pickers. The layouts are byte-for-byte the JAX package's; the result
+ladder pickers, and ``repack_dense``. The layouts are byte-for-byte the
+JAX package's; the result
 is a :class:`GraphBatch` of CPU tensors (move it with ``.to(device)``).
 ``core/native.py`` is the C++ twin of both packers.
 """
@@ -225,3 +226,48 @@ def pick_dense_epg(max_edges: int,
                    ladder: Sequence[int] = DEFAULT_DENSE_EPG) -> int:
     """Smallest uniform per-graph edge padding that fits ``max_edges``."""
     return _pick(max_edges, ladder, "edges")
+
+
+def repack_dense(gb: GraphBatch, nodes_per_graph: int,
+                 edges_per_graph: int) -> GraphBatch:
+    """A dense batch re-padded to bigger uniform paddings, on the host: each
+    graph's rows move from [g*npg, g*npg+n) to [g*npg2, g*npg2+n), flat node
+    indices remap as ``(i // npg) * npg2 + i % npg``, and the new slots are
+    padding (pad edges at their graph's last node row). The JAX package
+    aligns a data-parallel group's shapes with it before stacking them."""
+    B, npg, epg = gb.num_graphs, gb.nodes_per_graph, gb.edges_per_graph
+    npg2, epg2 = nodes_per_graph, edges_per_graph
+    if not gb.has_dense_layout:
+        raise ValueError("repack_dense needs the dense layout")
+    if npg2 == npg and epg2 == epg:
+        return gb
+    if npg2 < npg or epg2 < epg:
+        raise ValueError(f"cannot shrink ({npg}, {epg}) to ({npg2}, {epg2})")
+
+    def pad_rows(t, per, per2, fill):
+        a = t.numpy().reshape(B, per, *t.shape[1:])
+        out = np.full((B, per2) + a.shape[2:], fill, a.dtype)
+        out[:, :per] = a
+        return torch.from_numpy(out.reshape((B * per2,) + a.shape[2:]))
+
+    def remap(t):
+        idx = t.numpy().reshape(B, epg).astype(np.int64)
+        return ((idx // npg) * npg2 + idx % npg).astype(np.int32)
+
+    pad_node = (np.arange(B) * npg2 + (npg2 - 1)).astype(np.int32)
+    src = np.repeat(pad_node[:, None], epg2, axis=1)
+    dst = src.copy()
+    src[:, :epg] = remap(gb.edge_src)
+    dst[:, :epg] = remap(gb.edge_dst)
+    return dataclasses.replace(
+        gb,
+        node_tokens=pad_rows(gb.node_tokens, npg, npg2, 1),
+        node_graph=pad_rows(gb.node_graph, npg, npg2, B),
+        node_mask=pad_rows(gb.node_mask, npg, npg2, False),
+        exec_bitmap=pad_rows(gb.exec_bitmap, npg, npg2, 0.0),
+        edge_src=torch.from_numpy(src.reshape(-1)),
+        edge_dst=torch.from_numpy(dst.reshape(-1)),
+        edge_tokens=pad_rows(gb.edge_tokens, epg, epg2, 1),
+        edge_mask=pad_rows(gb.edge_mask, epg, epg2, False),
+        edge_sym_sign=pad_rows(gb.edge_sym_sign, epg, epg2, 1.0),
+        nodes_per_graph=npg2, edges_per_graph=epg2)

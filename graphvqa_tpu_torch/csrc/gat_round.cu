@@ -8,7 +8,9 @@
 //
 // Per graph b, head h, edge e (src j -> dst i, real when mask > 0):
 //   logit  = leaky_relu(al[j,h] + ar[i,h] + ae[e,h])
-//   p      = exp(min(logit - shift, 0))      shift: graph max or dst max
+//   p      = exp(min(logit - shift, 0))      shift: graph max or dst max;
+//            the graph shift may be given ([B, H]: an edge-sharded batch's
+//            max over the edge group, parallel/edge_sharded.py)
 //   a      = p * (1/H) / (sum_{e->i} p + 1e-16)
 //   out[i] = sum_h sum_{e->i} a[e,h] * xw[j,h,:] + sum_h rowsum_a[i,h] * ins[b,h,:]
 //
@@ -359,6 +361,7 @@ struct Params {
   const float* ar;
   const float* ae;
   const float* keep;   // null: no dropout
+  const float* gmax;   // [B, H] the graph shift given, or null
   const void* xw;
   const void* ins;
   void* out;
@@ -522,7 +525,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
       float rs = 0.f;
       if (e0 < e1) {
         float m = kNegInf;
-        if (p.shift_graph) {
+        if (p.gmax != nullptr) {
+          m = p.gmax[b * H + h];
+        } else if (p.shift_graph) {
           for (int v = 0; v < kWarps; ++v) m = fmaxf(m, red[v * H + h]);
         } else {
           for (int e = e0; e < e1; ++e) m = fmaxf(m, w[e * H + h]);
@@ -708,14 +713,17 @@ extern "C" size_t gat_round_smem_bytes(int npg, int epg, int H, int C,
 // dtype: 0 = float32, 1 = bfloat16 (xw, ins and out). dl/sl int32 [B, epg]
 // (per graph: real edges first, dst-sorted, padding last),
 // mask f32 [B, epg], al/ar f32 [B*npg, H], ae f32 [B, epg, H], xw [B*npg, H, C],
-// keep f32 [B, epg, H] or null, ins [B, H, C] or null, out [B*npg, C],
+// keep f32 [B, epg, H] or null, gmax f32 [B, H] or null (with shift_graph:
+// the shift given instead of the graph's max over its edges here), ins
+// [B, H, C] or null, out [B*npg, C],
 // alpha [B, epg, H] or null, next 4 bytes of scratch (the graph counter,
 // zeroed here on the stream). Launches on the current device.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gat_round_launch(int dtype, const void* dl, const void* sl,
                                 const void* mask, const void* al,
                                 const void* ar, const void* ae,
-                                const void* keep, const void* xw,
+                                const void* keep, const void* gmax,
+                                const void* xw,
                                 const void* ins, void* out, void* alpha,
                                 void* next, int B, int npg, int epg, int H,
                                 int C, float slope, int shift_graph,
@@ -731,7 +739,9 @@ extern "C" int gat_round_launch(int dtype, const void* dl, const void* sl,
   Params p{static_cast<const int32_t*>(dl), static_cast<const int32_t*>(sl),
            static_cast<const float*>(mask), static_cast<const float*>(al),
            static_cast<const float*>(ar), static_cast<const float*>(ae),
-           static_cast<const float*>(keep), xw, ins, out, alpha,
+           static_cast<const float*>(keep),
+           shift_graph ? static_cast<const float*>(gmax) : nullptr, xw, ins,
+           out, alpha,
            static_cast<int*>(next), B, npg, epg, H, C, shift_graph, 0, slope};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_vec<float>(vec, p, s)

@@ -7,7 +7,7 @@
 // Per graph b, head h, edge e (src s -> dst d, real when mask > 0), with the
 // forward's terms recomputed from its inputs (nothing is saved but them):
 //   z = al[s] + ar[d] + ae[e],  lg = leaky(z),  sh = lg - shift (a constant,
-//   JAX's stop_gradient),  p = exp(min(sh, 0)),  den[d] = sum_{e'->d} p,
+//   JAX's stop_gradient; the graph shift may be given, as the forward's),  p = exp(min(sh, 0)),  den[d] = sum_{e'->d} p,
 //   r = (1/H) / (den + 1e-16),  A = p * k * r   (k: dropout scale or 1)
 //   u[e]  = <g[d], xw[s,h] + ins[b,h]>
 //   dp[e] = k r u[e] - sum_{e'->d} u[e'] A[e'] / (den + 1e-16)
@@ -433,6 +433,7 @@ struct Params {
   const float* ar;
   const float* ae;
   const float* keep;   // null: no dropout
+  const float* gmax;   // [B, H] the graph shift given, or null
   const void* xw;
   const void* ins;     // null: no instruction share
   const void* g;       // upstream gradient of out [B*npg, C]
@@ -671,7 +672,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
         const int e0 = beg[d], e1 = end[d];
         float den = 0.f, rsum = 0.f, m = kNegInf;
         if (e0 < e1) {
-          if (p.shift_graph) {
+          if (p.gmax != nullptr) {
+            m = p.gmax[b * H + h];
+          } else if (p.shift_graph) {
             for (int w = 0; w < kWarps; ++w) m = fmaxf(m, red[w]);
           } else {
             for (int e = e0; e < e1; ++e) m = fmaxf(m, pe[e]);
@@ -1018,7 +1021,7 @@ extern "C" size_t gat_round_backward_smem_bytes(int npg, int epg, int H,
 // dtype: 0 = float32, 1 = bfloat16 (xw, ins, g, dxw and dins). dl/sl int32
 // [B, epg] (per graph: real edges first, dst-sorted, padding last), mask f32
 // [B, epg], al/ar f32 [B*npg, H], ae f32 [B, epg, H], keep f32 [B, epg, H] or
-// null, xw [B*npg, H, C], ins [B, H, C] or null, g [B*npg, C] (the gradient
+// null, gmax f32 [B, H] or null (the forward's), xw [B*npg, H, C], ins [B, H, C] or null, g [B*npg, C] (the gradient
 // of out). Writes dxw [B*npg, H, C], dal/dar f32 [B*npg, H], dae f32
 // [B, epg, H] and, when ins is given, dins [B, H, C], each in full. next: 4
 // bytes of scratch (the work counter, zeroed here on the stream; it ends
@@ -1027,7 +1030,8 @@ extern "C" size_t gat_round_backward_smem_bytes(int npg, int epg, int H,
 extern "C" int gat_round_backward_launch(
     int dtype, const void* dl, const void* sl, const void* mask,
     const void* al, const void* ar, const void* ae, const void* keep,
-    const void* xw, const void* ins, const void* g, void* dxw, void* dal,
+    const void* gmax, const void* xw, const void* ins, const void* g,
+    void* dxw, void* dal,
     void* dar, void* dae, void* dins, void* next, int B, int npg, int epg,
     int H, int C, float slope, int shift_graph, void* stream) {
   if (B <= 0 || npg <= 0 || epg <= 0 || H <= 0 || C <= 0 ||
@@ -1042,7 +1046,9 @@ extern "C" int gat_round_backward_launch(
   Params p{static_cast<const int32_t*>(dl), static_cast<const int32_t*>(sl),
            static_cast<const float*>(mask), static_cast<const float*>(al),
            static_cast<const float*>(ar), static_cast<const float*>(ae),
-           static_cast<const float*>(keep), xw, ins, g, dxw,
+           static_cast<const float*>(keep),
+           shift_graph ? static_cast<const float*>(gmax) : nullptr, xw, ins,
+           g, dxw,
            static_cast<float*>(dal), static_cast<float*>(dar),
            static_cast<float*>(dae), dins, static_cast<int*>(next), B, npg,
            epg, H, C, shift_graph, 0, slope};

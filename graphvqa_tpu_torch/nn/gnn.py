@@ -52,7 +52,8 @@ from graphvqa_tpu_torch.nn.transformer import (
     TorchLinear, dropout, matmul_f32)
 from graphvqa_tpu_torch.ops import dense
 from graphvqa_tpu_torch.ops.dispatch import aggregate_edge_values
-from graphvqa_tpu_torch.ops.gat_round import gat_round
+from graphvqa_tpu_torch.ops.gat_round import gat_round, graph_logit_max
+from graphvqa_tpu_torch.parallel.collectives import pmax
 from graphvqa_tpu_torch.ops.segment import (
     gather_nodes, scatter_edges_to_nodes, segment_softmax, segment_sum)
 
@@ -188,15 +189,26 @@ class GATLayer(nn.Module):
             graph, (ins_value * self.att_r).sum(-1))
         ins_e = matmul_f32(ins, self.edge_att()[self.edge_channels:], dt)
         alpha_e = (alpha_e_base + dense.broadcast_to_edges(graph, ins_e)).to(dt)
+        alpha_l, alpha_r = alpha_l.contiguous(), alpha_r.contiguous()
+        alpha_e = alpha_e.reshape(B, epg, H)
+        shift_max = None
+        if graph.edge_group is not None and dense.SOFTMAX_SHIFT == "graph":
+            # the whole graph's max, so that the shift and JAX's halved
+            # derivative at the maximum are the single-device ones
+            shift_max = pmax(graph_logit_max(
+                dl, sl, mask, alpha_l, alpha_r, alpha_e, npg=npg,
+                negative_slope=self.negative_slope), graph.edge_group)
 
         out = gat_round(
-            dl, sl, mask, alpha_l.contiguous(), alpha_r.contiguous(),
-            alpha_e.reshape(B, epg, H), xw, ins_value.to(dt).contiguous(),
-            npg=npg, epg=epg, negative_slope=self.negative_slope,
-            shift=dense.SOFTMAX_SHIFT, keep_scale=keep_scale,
-            return_alpha=return_alpha)
+            dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
+            ins_value.to(dt).contiguous(), npg=npg, epg=epg,
+            negative_slope=self.negative_slope, shift=dense.SOFTMAX_SHIFT,
+            keep_scale=keep_scale, return_alpha=return_alpha,
+            shift_max=shift_max)
         if return_alpha:
             out, alpha = out
+        # an edge-sharded round gives its owned destinations' rows only
+        out = dense.assemble_rows(graph, out)
         out = torch.where(graph.node_mask[:, None], out + self.bias, 0.0)
         return (out, alpha) if return_alpha else out
 

@@ -8,6 +8,16 @@ in float32 and return the input dtype, and the destination softmax and the
 weighted scatter round where the JAX functions round.
 
 The GAT round itself is :func:`graphvqa_tpu_torch.ops.gat_round.gat_round`.
+
+Under destination-ownership edge sharding (``graph.edge_group`` set, see
+``parallel/edge_sharded.py``) a rank holds the edges of the destinations it
+owns. Every destination's softmax is then local, and the destination rows
+of the others stay 0; each aggregation ends in :func:`assemble_rows`, one
+all-reduce over the edge group that turns the ranks' disjoint rows into the
+replicated node rows. Gathers read the replicated node arrays as they are.
+The JAX package computes only the owned rows (a [B, npg/k] slice) and
+assembles them the same way; here the full rows are computed, as the index
+ops do not care which rows the edges point at.
 """
 from __future__ import annotations
 
@@ -16,6 +26,8 @@ import os
 import torch
 
 from graphvqa_tpu_torch.core.graph import GraphBatch
+from graphvqa_tpu_torch.parallel.collectives import assemble_rows as _assemble
+from graphvqa_tpu_torch.parallel.collectives import pmax
 
 NEG_INF = -1e30
 SOFTMAX_EPS = 1e-16  # torch_geometric.utils.softmax denominator
@@ -38,6 +50,13 @@ def dense_local_indices(graph: GraphBatch):
     dl = (graph.edge_dst % npg).reshape(B, epg).to(torch.int32)
     sl = (graph.edge_src % npg).reshape(B, epg).to(torch.int32)
     return dl.contiguous(), sl.contiguous()
+
+
+def assemble_rows(graph: GraphBatch, out: torch.Tensor) -> torch.Tensor:
+    """Per-node rows [N, ...] of an aggregation -> the replicated rows:
+    the sum over the edge group of its ranks' disjoint destination rows
+    (the identity on a batch that is not edge-sharded)."""
+    return _assemble(out, graph.edge_group)
 
 
 def _masked_edges(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:
@@ -68,7 +87,8 @@ def dense_aggregate_edges(graph: GraphBatch, edge_values: torch.Tensor,
         counts = torch.zeros(N, dtype=torch.float32, device=v.device)
         counts.index_add_(0, graph.edge_dst, graph.edge_mask.float())
         out = out / counts.clamp(min=1.0)[:, None]
-    return out.to(edge_values.dtype)
+    # each destination's count is local (ownership): mean before assembling
+    return assemble_rows(graph, out.to(edge_values.dtype))
 
 
 def broadcast_to_nodes(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:
@@ -93,13 +113,18 @@ def dense_segment_softmax(graph: GraphBatch,
     -> [E, H] in the logits' dtype (torch_geometric.utils.softmax; masked
     edges 0). The stabilizing shift is ``SOFTMAX_SHIFT``'s: one max per
     graph ('graph', the default) or per destination ('dst'), detached as
-    JAX's ``stop_gradient`` detaches it; the denominator sums in float32."""
+    JAX's ``stop_gradient`` detaches it; the denominator sums in float32.
+    On an edge-sharded batch the graph's max is the edge group's, as in JAX:
+    the shard's own would be a valid shift too, but the derivative of 1/2
+    that JAX's ``minimum`` gives at the maximum would then fall on another
+    edge."""
     B, _, epg = dense_shapes(graph)
     H = logits.shape[-1]
     m = graph.edge_mask[:, None]
     lg = torch.where(m, logits, NEG_INF)
     if SOFTMAX_SHIFT == "graph":
-        seg_max = lg.detach().reshape(B, epg, H).amax(dim=1).clamp(min=NEG_INF)
+        seg_max = pmax(lg.detach().reshape(B, epg, H).amax(dim=1),
+                       graph.edge_group).clamp(min=NEG_INF)
         max_e = seg_max[:, None, :].expand(B, epg, H).reshape(B * epg, H)
     else:
         idx = graph.edge_dst[:, None].expand(-1, H)
@@ -141,7 +166,7 @@ def dense_scatter_matmul(graph: GraphBatch, edge_weights: torch.Tensor,
     p = p.reshape(B, H, npg, npg).to(dt)
     v = values.reshape(B, npg, H, C).transpose(1, 2)          # [B, H, npg, C]
     out = torch.matmul(p.float(), v.float())                  # f32 accumulate
-    return out.transpose(1, 2).reshape(N, H, C).to(dt)
+    return assemble_rows(graph, out.transpose(1, 2).reshape(N, H, C).to(dt))
 
 
 def dense_node_softmax(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:

@@ -68,13 +68,13 @@ class KernelLibrary:
         self.paths, self.log, self.build_seconds = paths, log, build_seconds
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd = ctypes.CDLL(str(paths["forward"]))
-        fwd.gat_round_launch.argtypes = [ci] + [vp] * 12 + [ci] * 5 + [cf, ci, vp]
+        fwd.gat_round_launch.argtypes = [ci] + [vp] * 13 + [ci] * 5 + [cf, ci, vp]
         fwd.gat_round_launch.restype = ci
         fwd.gat_round_smem_bytes.argtypes = [ci] * 5
         fwd.gat_round_smem_bytes.restype = ctypes.c_size_t
         bwd = ctypes.CDLL(str(paths["backward"]))
         bwd.gat_round_backward_launch.argtypes = (
-            [ci] + [vp] * 16 + [ci] * 5 + [cf, ci, vp])
+            [ci] + [vp] * 17 + [ci] * 5 + [cf, ci, vp])
         bwd.gat_round_backward_launch.restype = ci
         bwd.gat_round_backward_smem_bytes.argtypes = [ci] * 5
         bwd.gat_round_backward_smem_bytes.restype = ctypes.c_size_t
@@ -164,11 +164,12 @@ def edges_dst_sorted(dl, sl, mask, npg) -> bool:
 
 
 def _edge_terms(dl, sl, mask, alpha_l, alpha_r, alpha_e, npg, epg,
-                negative_slope, shift):
+                negative_slope, shift, shift_max=None):
     """Per-edge terms of the round on the flat [B*epg] edge axis: (real,
     dst, src, z, shifted) with z the logit before the leaky ReLU and
     ``shifted`` the logit after it (-1e30 on padded edges) minus the softmax
-    shift, which is detached (the JAX package's stop_gradient)."""
+    shift, which is detached (the JAX package's stop_gradient;
+    ``shift_max`` [B, H] replaces the graph's max in the 'graph' shift)."""
     if shift not in _SHIFTS:
         raise ValueError(f"unknown softmax shift {shift!r}")
     B = dl.shape[0]
@@ -186,7 +187,8 @@ def _edge_terms(dl, sl, mask, alpha_l, alpha_r, alpha_e, npg, epg,
     lg = torch.where(real[:, None], lg, NEG_INF)
     with torch.no_grad():
         if shift == "graph":
-            gmax = lg.reshape(B, epg, H).amax(dim=1).clamp(min=NEG_INF)
+            gmax = (lg.reshape(B, epg, H).amax(dim=1) if shift_max is None
+                    else shift_max.float()).clamp(min=NEG_INF)
             shift_e = gmax.repeat_interleave(epg, dim=0)
         else:
             dmax = torch.full((N, H), NEG_INF, device=dev).scatter_reduce(
@@ -195,16 +197,33 @@ def _edge_terms(dl, sl, mask, alpha_l, alpha_r, alpha_e, npg, epg,
     return real, dst, src, z, lg - shift_e
 
 
+def graph_logit_max(dl, sl, mask, alpha_l, alpha_r, alpha_e, *, npg,
+                    negative_slope=0.2) -> torch.Tensor:
+    """[B, H] f32: each graph's largest logit over its real edges, computed
+    as the kernels compute their 'graph' shift (-1e30 for a graph without
+    edges). An edge-sharded round takes the edge group's max of it as
+    ``shift_max``, so the shift, and the tie at the maximum that JAX's
+    gradient halves, are those of the whole graph."""
+    epg = dl.shape[1]
+    _, _, _, _, shifted = _edge_terms(
+        dl, sl, mask, alpha_l, alpha_r, alpha_e.float(), npg, epg,
+        negative_slope, "graph", torch.zeros(dl.shape[0], alpha_l.shape[1],
+                                             device=alpha_l.device))
+    return shifted.detach().reshape(dl.shape[0], epg, -1).amax(dim=1)
+
+
 def gat_round_reference(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
                         ins_value=None, *, npg, epg, negative_slope=0.2,
-                        shift="graph", keep_scale=None, return_alpha=False):
+                        shift="graph", keep_scale=None, return_alpha=False,
+                        shift_max=None):
     """Plain torch twin of the kernel (same arguments, same math).
 
     dl/sl [B, epg] local indices, mask [B, epg] (>0 = real edge), alpha_l /
     alpha_r [B*npg, H] f32, alpha_e [B, epg, H], xw [B*npg, H, C],
     ins_value [B, H, C] or None, keep_scale [B, epg, H] f32 or None (the
     attention dropout scale, 0 or 1/(1-rate), applied to exp() after the
-    denominator) -> out [B*npg, C] in xw's dtype, accumulated in float32;
+    denominator), shift_max [B, H] f32 or None (the 'graph' shift given)
+    -> out [B*npg, C] in xw's dtype, accumulated in float32;
     with ``return_alpha`` also the dropped attention exp / (den + 1e-16)
     [B*epg, H] in xw's dtype.
 
@@ -217,7 +236,7 @@ def gat_round_reference(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
     dev = xw.device
     real, dst, src, _, shifted = _edge_terms(
         dl, sl, mask, alpha_l, alpha_r, alpha_e, npg, epg, negative_slope,
-        shift)
+        shift, shift_max)
     p = torch.where(real[:, None],
                     torch.exp(torch.minimum(shifted, torch.zeros_like(
                         shifted))), 0.0)
@@ -242,7 +261,8 @@ def gat_round_reference(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
 def gat_round_backward_reference(grad_out, dl, sl, mask, alpha_l, alpha_r,
                                  alpha_e, xw, ins_value=None,
                                  keep_scale=None, *, npg, epg,
-                                 negative_slope=0.2, shift="graph"):
+                                 negative_slope=0.2, shift="graph",
+                                 shift_max=None):
     """Plain torch twin of the backward kernel: the vjp of
     :func:`gat_round_reference` for the upstream gradient ``grad_out``
     [B*npg, C], in closed form (the terms of csrc/gat_round_backward.cu),
@@ -255,7 +275,7 @@ def gat_round_backward_reference(grad_out, dl, sl, mask, alpha_l, alpha_r,
     with torch.no_grad():
         real, dst, src, z, shifted = _edge_terms(
             dl, sl, mask, alpha_l, alpha_r, alpha_e, npg, epg,
-            negative_slope, shift)
+            negative_slope, shift, shift_max)
         r1 = real[:, None]
         p = torch.where(r1, torch.exp(shifted.clamp(max=0.0)), 0.0)
         k = (torch.ones_like(p) if keep_scale is None
@@ -325,7 +345,8 @@ def _launch(fn, args, dev, what):
 
 
 def _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
-                       ins_value, keep_scale, npg, epg, shift):
+                       ins_value, keep_scale, npg, epg, shift,
+                       shift_max=None):
     if xw.device.type != "cuda":
         raise ValueError(f"gat_round runs on cuda or cpu, not {xw.device}")
     if shift not in _SHIFTS:
@@ -346,6 +367,8 @@ def _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
         _check("ins_value", ins_value, (B, H, C), (xw.dtype,), dev)
     if keep_scale is not None:
         _check("keep_scale", keep_scale, (B, epg, H), (torch.float32,), dev)
+    if shift_max is not None:
+        _check("shift_max", shift_max, (B, H), (torch.float32,), dev)
 
 
 def _ptr(t):
@@ -353,7 +376,8 @@ def _ptr(t):
 
 
 def _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
-             keep_scale, npg, epg, negative_slope, shift, return_alpha):
+             keep_scale, npg, epg, negative_slope, shift, return_alpha,
+             shift_max=None):
     """-> (out, alpha or None): the kernel on CUDA tensors, the plain
     version on CPU tensors."""
     if xw.device.type == "cpu":
@@ -363,10 +387,11 @@ def _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
         got = gat_round_reference(
             dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value, npg=npg,
             epg=epg, negative_slope=negative_slope, shift=shift,
-            keep_scale=keep_scale, return_alpha=return_alpha)
+            keep_scale=keep_scale, return_alpha=return_alpha,
+            shift_max=shift_max)
         return got if return_alpha else (got, None)
     _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
-                       ins_value, keep_scale, npg, epg, shift)
+                       ins_value, keep_scale, npg, epg, shift, shift_max)
     B = dl.shape[0]
     N, H, C = xw.shape
     dev = xw.device
@@ -382,7 +407,8 @@ def _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
     counter = torch.empty(1, dtype=torch.int32, device=dev)
     args = (code, dl.data_ptr(), sl.data_ptr(), mask.data_ptr(),
             alpha_l.data_ptr(), alpha_r.data_ptr(), alpha_e.data_ptr(),
-            _ptr(keep_scale), xw.data_ptr(), _ptr(ins_value), out.data_ptr(),
+            _ptr(keep_scale), _ptr(shift_max), xw.data_ptr(), _ptr(ins_value),
+            out.data_ptr(),
             _ptr(alpha), counter.data_ptr(), B, npg, epg, H, C,
             float(negative_slope), int(shift == "graph"))
     _launch(lib.fwd.gat_round_launch, args, dev, "gat_round")
@@ -392,7 +418,7 @@ def _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
 
 def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
                        ins_value=None, keep_scale=None, *, npg, epg,
-                       negative_slope=0.2, shift="graph"):
+                       negative_slope=0.2, shift="graph", shift_max=None):
     """The round's vjp -> (d_xw, d_alpha_l, d_alpha_r, d_alpha_e,
     d_ins_value or None), as :func:`gat_round_backward_reference` documents.
 
@@ -402,9 +428,9 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
         return gat_round_backward_reference(
             grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
             keep_scale, npg=npg, epg=epg, negative_slope=negative_slope,
-            shift=shift)
+            shift=shift, shift_max=shift_max)
     _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
-                       ins_value, keep_scale, npg, epg, shift)
+                       ins_value, keep_scale, npg, epg, shift, shift_max)
     B = dl.shape[0]
     N, H, C = xw.shape
     dev = xw.device
@@ -425,8 +451,8 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
     counter = torch.empty(1, dtype=torch.int32, device=dev)
     args = (code, dl.data_ptr(), sl.data_ptr(), mask.data_ptr(),
             alpha_l.data_ptr(), alpha_r.data_ptr(), alpha_e.data_ptr(),
-            _ptr(keep_scale), xw.data_ptr(), _ptr(ins_value),
-            grad_out.data_ptr(), d_xw.data_ptr(), d_al.data_ptr(),
+            _ptr(keep_scale), _ptr(shift_max), xw.data_ptr(),
+            _ptr(ins_value), grad_out.data_ptr(), d_xw.data_ptr(), d_al.data_ptr(),
             d_ar.data_ptr(), d_ae.data_ptr(), _ptr(d_ins),
             counter.data_ptr(), B, npg, epg, H, C, float(negative_slope),
             int(shift == "graph"))
@@ -450,12 +476,13 @@ class GATRoundFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
-                keep_scale, npg, epg, negative_slope, shift, return_alpha):
+                keep_scale, npg, epg, negative_slope, shift, return_alpha,
+                shift_max):
         out, alpha = _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
                               ins_value, keep_scale, npg, epg,
-                              negative_slope, shift, return_alpha)
+                              negative_slope, shift, return_alpha, shift_max)
         ctx.save_for_backward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
-                              ins_value, keep_scale)
+                              ins_value, keep_scale, shift_max)
         ctx.widths = (npg, epg, negative_slope, shift)
         if alpha is None:
             return out
@@ -465,17 +492,18 @@ class GATRoundFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out, *_):
         npg, epg, slope, shift = ctx.widths
-        dl, sl, mask, al, ar, ae, xw, ins, keep = ctx.saved_tensors
+        dl, sl, mask, al, ar, ae, xw, ins, keep, gmax = ctx.saved_tensors
         d_xw, d_al, d_ar, d_ae, d_ins = gat_round_backward(
             grad_out.contiguous(), dl, sl, mask, al, ar, ae, xw, ins, keep,
-            npg=npg, epg=epg, negative_slope=slope, shift=shift)
+            npg=npg, epg=epg, negative_slope=slope, shift=shift,
+            shift_max=gmax)
         return (None, None, None, d_al, d_ar, d_ae, d_xw, d_ins,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def gat_round(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value=None,
               *, npg, epg, negative_slope=0.2, shift="graph", keep_scale=None,
-              return_alpha=False):
+              return_alpha=False, shift_max=None):
     """One fused GAT round -> [B*npg, C] in xw's dtype (see module doc);
     with ``return_alpha`` also the attention [B*epg, H] (no gradient).
 
@@ -485,12 +513,14 @@ def gat_round(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value=None,
     :class:`GATRoundFunction`, whose backward is the backward kernel (or its
     plain version on the CPU). ``alpha_e`` is cast to float32 here;
     ``ins_value`` must share xw's dtype; ``keep_scale`` [B, epg, H] f32 is
-    the attention dropout scale. Edges must be in the dense packing's order
-    (module doc).
+    the attention dropout scale; ``shift_max`` [B, H] f32 the 'graph' shift
+    given (an edge-sharded round's, :func:`graph_logit_max`). Edges must be
+    in the dense packing's order (module doc).
     """
     alpha_e = alpha_e.float().contiguous()
     args = (dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
-            keep_scale, npg, epg, negative_slope, shift, return_alpha)
+            keep_scale, npg, epg, negative_slope, shift, return_alpha,
+            shift_max)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (alpha_l, alpha_r, alpha_e, xw, ins_value)):

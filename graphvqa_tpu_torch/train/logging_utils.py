@@ -1,6 +1,7 @@
 """Host-side progress meters and the run's provenance stamp (port of
-``graphvqa_tpu/train/logging_utils.py``: ``get_sha``, ``AverageMeter`` and
-``ProgressMeter``, what ``train_one_epoch`` and ``validate`` print)."""
+``graphvqa_tpu/train/logging_utils.py``: ``get_sha``, ``AverageMeter`` with
+its cross-process ``synchronize`` and ``ProgressMeter``, what
+``train_one_epoch`` and ``validate`` print)."""
 from __future__ import annotations
 
 import logging
@@ -39,15 +40,36 @@ class AverageMeter:
         self.val = 0.0
         self.sum = 0.0
         self.count = 0
+        # the other ranks' share, gathered by synchronize()
+        self._ext_sum = 0.0
+        self._ext_count = 0
 
     def update(self, val: float, n: int = 1):
         self.val = float(val)
         self.sum += float(val) * n
         self.count += n
 
+    def synchronize(self, group=None):
+        """Fold in the (sum, count) of every other rank of ``group`` so that
+        ``avg`` is global (the reference's
+        ``SmoothedValue.synchronize_between_processes``). Repeatable: the
+        local updates stay local and the others' share is gathered anew.
+        A collective: every rank of ``group`` calls it equally often."""
+        from graphvqa_tpu_torch.parallel.collectives import all_gather_host
+        if group is None:
+            return
+        parts = all_gather_host((self.sum, self.count), group)
+        self._ext_sum = float(sum(p[0] for p in parts)) - self.sum
+        self._ext_count = int(sum(p[1] for p in parts)) - self.count
+
     @property
     def avg(self) -> float:
-        return self.sum / max(self.count, 1)
+        return ((self.sum + self._ext_sum)
+                / max(self.count + self._ext_count, 1))
+
+    @property
+    def global_count(self) -> int:
+        return self.count + self._ext_count
 
     def __str__(self):
         fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"

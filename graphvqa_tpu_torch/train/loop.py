@@ -52,65 +52,63 @@ def _teacher_inputs(batch: QABatch) -> QABatch:
                                full_answers=batch.full_answers[:, :-1])
 
 
-def make_train_step(model: PipelineModel, cfg: Config,
-                    steps_per_dispatch: int = 1) -> Callable:
-    """One optimizer step per call, or K = ``steps_per_dispatch`` steps over
-    a list of K batches. The state is updated in place (the parameters,
-    moments and running statistics are large) and returned."""
+def forward_backward(model: PipelineModel, cfg: Config, batch: QABatch,
+                     generator: torch.Generator,
+                     ctx_generator: Optional[torch.Generator] = None,
+                     loss_scale: float = 1.0) -> Dict[str, torch.Tensor]:
+    """The part of a train step before the optimizer: forward (dropout from
+    ``generator``, BatchNorm on batch statistics, which updates the running
+    ones), the loss, the backward into each parameter's ``.grad`` (of the
+    loss times ``loss_scale``) and the in-step metrics, on the device."""
     pad = cfg.model.text.pad_idx
-    steps = cfg.model.max_execution_steps
     tc = cfg.train
+    programs_target = batch.programs[:, 1:]
+    full_answers_target = batch.full_answers[:, 1:]
+    for p in model.parameters():
+        p.grad = None
+    # the full-answer decoder runs only when a loss reads it
+    out = model(_teacher_inputs(batch), deterministic=False,
+                use_running_average=False, generator=generator,
+                ctx_generator=ctx_generator,
+                full_answer=tc.use_full_answer_loss)
+    loss, parts = total_loss(
+        out, programs_target, full_answers_target,
+        batch.short_answer_label, pad,
+        bitmap_true=batch.graphs.exec_bitmap,
+        node_mask=batch.graphs.node_mask,
+        use_program_loss=tc.use_program_loss,
+        use_full_answer_loss=tc.use_full_answer_loss,
+        use_bitmap_loss=tc.use_bitmap_loss)
+    (loss if loss_scale == 1.0 else loss * loss_scale).backward()
+    with torch.no_grad():
+        sa_correct, sa_total = topk_accuracy(
+            out.short_answer_logits, batch.short_answer_label)
+        prog_pred = out.program_logits.argmax(dim=-1)
+        (p_c, p_t), (g_c, g_t), (ne_c, ne_t) = \
+            program_string_exact_match_acc(prog_pred, programs_target,
+                                           pad, cfg.model.max_execution_steps)
+        metrics = {k: v.detach() for k, v in parts.items()}
+        metrics.update(
+            short_answer_correct=sa_correct, short_answer_total=sa_total,
+            program_correct=p_c, program_total=p_t,
+            program_group_correct=g_c, program_group_total=g_t,
+            program_nonempty_correct=ne_c, program_nonempty_total=ne_t,
+            edge_count=batch.graphs.edge_mask.sum())
+        if out.execution_bitmap is not None:
+            tp, pred_total, _, true_total = bitmap_precision_recall(
+                out.execution_bitmap, batch.graphs.exec_bitmap,
+                batch.graphs.node_mask)
+            metrics.update(bitmap_tp=tp, bitmap_pred_total=pred_total,
+                           bitmap_true_total=true_total)
+    return metrics
 
-    def train_step(state: TrainState, batch: QABatch,
-                   generator: torch.Generator,
-                   ctx_generator: Optional[torch.Generator] = None):
-        programs_target = batch.programs[:, 1:]
-        full_answers_target = batch.full_answers[:, 1:]
-        for p in model.parameters():
-            p.grad = None
-        # the full-answer decoder runs only when a loss reads it
-        out = model(_teacher_inputs(batch), deterministic=False,
-                    use_running_average=False, generator=generator,
-                    ctx_generator=ctx_generator,
-                    full_answer=tc.use_full_answer_loss)
-        loss, parts = total_loss(
-            out, programs_target, full_answers_target,
-            batch.short_answer_label, pad,
-            bitmap_true=batch.graphs.exec_bitmap,
-            node_mask=batch.graphs.node_mask,
-            use_program_loss=tc.use_program_loss,
-            use_full_answer_loss=tc.use_full_answer_loss,
-            use_bitmap_loss=tc.use_bitmap_loss)
-        loss.backward()
-        lr = state.current_lr()
-        state.apply_gradients({n: p.grad for n, p in model.named_parameters()})
-        with torch.no_grad():
-            sa_correct, sa_total = topk_accuracy(
-                out.short_answer_logits, batch.short_answer_label)
-            prog_pred = out.program_logits.argmax(dim=-1)
-            (p_c, p_t), (g_c, g_t), (ne_c, ne_t) = \
-                program_string_exact_match_acc(prog_pred, programs_target,
-                                               pad, steps)
-            metrics = {k: v.detach() for k, v in parts.items()}
-            metrics.update(
-                short_answer_correct=sa_correct, short_answer_total=sa_total,
-                program_correct=p_c, program_total=p_t,
-                program_group_correct=g_c, program_group_total=g_t,
-                program_nonempty_correct=ne_c, program_nonempty_total=ne_t,
-                lr=lr, edge_count=batch.graphs.edge_mask.sum())
-            if out.execution_bitmap is not None:
-                tp, pred_total, _, true_total = bitmap_precision_recall(
-                    out.execution_bitmap, batch.graphs.exec_bitmap,
-                    batch.graphs.node_mask)
-                metrics.update(bitmap_tp=tp, bitmap_pred_total=pred_total,
-                               bitmap_true_total=true_total)
-        return state, metrics
 
-    if steps_per_dispatch <= 1:
-        return train_step
-
-    def multi_step(state: TrainState, batches, generator: torch.Generator,
-                   ctx_generator: Optional[torch.Generator] = None):
+def multi_step(train_step: Callable, steps_per_dispatch: int) -> Callable:
+    """K = ``steps_per_dispatch`` calls of ``train_step`` over a list of K
+    batches, their metrics reduced as JAX's ``lax.scan`` dispatch reduces
+    them (counts summed, losses meaned, the last lr)."""
+    def run(state: TrainState, batches, generator: torch.Generator,
+            ctx_generator: Optional[torch.Generator] = None):
         if len(batches) != steps_per_dispatch:
             raise ValueError(f"expected {steps_per_dispatch} batches, got "
                              f"{len(batches)}")
@@ -121,7 +119,28 @@ def make_train_step(model: PipelineModel, cfg: Config,
                 per_step.setdefault(k, []).append(v)
         return state, reduce_scanned_metrics(per_step)
 
-    return multi_step
+    return run
+
+
+def make_train_step(model: PipelineModel, cfg: Config,
+                    steps_per_dispatch: int = 1) -> Callable:
+    """One optimizer step per call, or K = ``steps_per_dispatch`` steps over
+    a list of K batches. The state is updated in place (the parameters,
+    moments and running statistics are large) and returned."""
+
+    def train_step(state: TrainState, batch: QABatch,
+                   generator: torch.Generator,
+                   ctx_generator: Optional[torch.Generator] = None):
+        lr = state.current_lr()
+        metrics = forward_backward(model, cfg, batch, generator,
+                                   ctx_generator)
+        state.apply_gradients({n: p.grad for n, p in model.named_parameters()})
+        metrics["lr"] = lr
+        return state, metrics
+
+    if steps_per_dispatch <= 1:
+        return train_step
+    return multi_step(train_step, steps_per_dispatch)
 
 
 def make_eval_step(model: PipelineModel, cfg: Config) -> Callable:
@@ -231,6 +250,12 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
     return state
 
 
+def _sync_meters(group, *meters):
+    """The meters' cross-rank averages (nothing without a group)."""
+    for m in meters:
+        m.synchronize(group)
+
+
 def _start_profiler():
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
@@ -313,7 +338,8 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
              scenes: Optional[dict] = None,
              max_batches: Optional[int] = None,
              print_qualitative: bool = False,
-             generator: Optional[torch.Generator] = None) -> Dict[str, float]:
+             generator: Optional[torch.Generator] = None,
+             mesh=None) -> Dict[str, float]:
     """Greedy-decode validation over ``batches`` ((meta, batch) pairs on the
     model's device): short-answer, program, program-group and non-empty
     program accuracies over the real rows of each batch (a ragged last
@@ -326,8 +352,27 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
     of the first batch; ``generator`` goes to the eval step (LCGN's draw).
     With the execution engine, the bitmap's precision and recall over the
     real graphs' nodes come back as ``bitmap_precision`` /
-    ``bitmap_recall``. Single-process: the JAX package's cross-process
-    meter sync and dump gather are not ported."""
+    ``bitmap_recall``.
+
+    ``mesh`` (a :class:`~graphvqa_tpu_torch.parallel.mesh.Mesh`): each data
+    rank evaluates its own shard of the batches (the ranks of one edge
+    group the same one). The meters then synchronize over the data group at
+    each print and at the end, so every rank returns the global averages
+    and no question counts twice; the dumps are gathered over the data
+    group and rank 0 writes them. The meters' synchronization is a
+    collective whose call count follows ``print_freq`` and
+    ``max_batches``, so they are checked equal on every rank first."""
+    data_group = None
+    if mesh is not None and mesh.size > 1:
+        from graphvqa_tpu_torch.parallel.collectives import all_gather_host
+        cfgs = all_gather_host((print_freq, max_batches), mesh.world_group)
+        if any(c != cfgs[0] for c in cfgs):
+            raise ValueError(
+                f"validate() needs the same print_freq and max_batches on "
+                f"every rank (got {cfgs}): its meter synchronization is a "
+                f"collective whose call count depends on them")
+        data_group = mesh.data_group
+    write = mesh is None or mesh.is_main
     sa = AverageMeter("Acc@Short", ":6.2f")
     pa = AverageMeter("Acc@Program", ":6.2f")
     pg = AverageMeter("Acc@ProgramGroup", ":4.2f")
@@ -401,12 +446,27 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
                 meta, _host(node_att), _host(batch.graphs.node_graph), scenes,
                 real)
         if i % print_freq == 0:
+            _sync_meters(data_group, sa, pa, pg, pne, bprec, brec)
             progress.display(i)
+    # iter_batches gives every data shard the same number of batches, so
+    # every rank reaches this collective equally often
+    _sync_meters(data_group, sa, pa, pg, pne, bprec, brec)
     progress.display(i + 1)
     wall = time.perf_counter() - eval_t0
     print(f"  eval sustained: {total_real / max(wall, 1e-9):.1f} qa/s "
           f"({total_real} questions, {wall:.1f}s wall)")
 
+    # the other edge ranks hold the same dumps: only edge rank 0's gather
+    if (data_group is not None and mesh.edge_rank == 0
+            and (dump_path or dump_attentions_path)):
+        from graphvqa_tpu_torch.parallel.collectives import all_gather_host
+        gathered = all_gather_host((quesid2ans, attentions_out), data_group)
+        quesid2ans, attentions_out = {}, []
+        for qa, att in gathered:
+            quesid2ans.update(qa)
+            attentions_out.extend(att)
+    if not write:
+        dump_path = dump_attentions_path = None
     if dump_attentions_path is not None:
         path = pathlib.Path(dump_attentions_path)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -419,7 +479,7 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
         print("Result Dumped!", str(path))
     res = {"short_answer_acc": sa.avg, "program_acc": pa.avg,
            "program_group_acc": pg.avg, "program_nonempty_acc": pne.avg}
-    if bprec.count:
+    if bprec.global_count:
         res["bitmap_precision"] = bprec.avg
         res["bitmap_recall"] = brec.avg
     return res

@@ -460,13 +460,22 @@ def test_cli_trains_checkpoints_resumes_evaluates_and_scores(tmp_path):
     assert len(dump) == 7
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--data-parallel", "2"], "item 6"), (["--edge-parallel", "2"], "item 6"),
-    (["--model", "lcgn", "--data-parallel", "2"], "item 6")])
-def test_cli_names_the_roadmap_item_of_unported_flags(flags, item, tmp_path):
+@pytest.mark.parametrize("flags,message", [
+    (["--data-parallel", "2"], "needs 2 ranks, have 1"),
+    (["--edge-parallel", "2"], "needs 2 ranks, have 1"),
+    (["--model", "lcgn", "--data-parallel", "2"], "needs 2 ranks, have 1"),
+    (["--data-parallel", "2", "--edge-parallel", "2"],
+     "needs 4 ranks, have 1"),
+    (["--edge-parallel", "4", "--nodes-per-graph", "30"],
+     "needs 4 ranks, have 1")])
+def test_cli_names_the_roadmap_item_of_unported_flags(flags, message,
+                                                      tmp_path):
+    """The parallel flags are ported (tests/test_torch_port_parallel.py runs
+    them under torchrun); in one process they exit with the rank count
+    they need."""
     args = get_args_parser().parse_args(
         ["--data-root", str(tmp_path), "--device", "cpu"] + flags)
-    with pytest.raises(SystemExit, match=item):
+    with pytest.raises(SystemExit, match=message):
         cli_main(args)
 
 

@@ -697,3 +697,92 @@ def test_every_family_card_against_cpu(family):
     for n, g_c in gc.items():
         torch.testing.assert_close(gg[n], g_c, rtol=0, msg=n,
                                    atol=1e-4 * float(g_c.abs().max()) + 1e-7)
+
+
+def _single_steps(cfg, batches, dev, lr):
+    """The single-process float32 step on the card on each batch, from the
+    same weights: (gradients by name, loss) per batch, and the parameters
+    that Adam gives from the mean of those gradients."""
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.train.loop import forward_backward
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    runs = []
+    for batch in batches:
+        model = build_model(cfg.model, device=dev, seed=3)
+        m = forward_backward(model, cfg, batch.to(dev),
+                             torch.Generator(device=dev))
+        runs.append(({n: (torch.zeros_like(p) if p.grad is None
+                          else p.grad).cpu()
+                      for n, p in model.named_parameters()},
+                     float(m["total"])))
+    mean = {n: sum(r[0][n] for r in runs) / len(runs) for n in runs[0][0]}
+    model = build_model(cfg.model, device=dev, seed=3)
+    create_train_state(model, lr=lr).apply_gradients(
+        {n: g.to(dev) for n, g in mean.items()})
+    return runs, mean, {n: p.detach().cpu()
+                        for n, p in model.named_parameters()}
+
+
+def _spawn_train(cfg, batches, data, edge, tmp_path):
+    """One train step of ``data`` x ``edge`` gloo ranks sharing the card
+    (tests/torch_port_dist.py), from the same weights as _single_steps."""
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    import torch_port_dist
+    sd = build_model(cfg.model, device="cpu", seed=3).state_dict()
+    case = dict(kind="train", data=data, edge=edge, cfg=cfg, state_dict=sd,
+                lr=1e-3, wd=0.0, batches=[[b] for b in batches])
+    return [r[0] for r in torch_port_dist.spawn(data * edge, tmp_path, [case],
+                                                device="cuda")]
+
+
+def _close_grads(got, want, n):
+    torch.testing.assert_close(got, want, rtol=0, msg=n,
+                               atol=1e-4 * float(want.abs().max()) + 1e-7)
+
+
+def test_data_parallel_step_two_ranks_share_the_card(tmp_path):
+    """Two gloo ranks on the one card, each on its own batch: each rank's
+    own gradient equals the single-process step's on its batch (within 1e-4
+    of each tensor's largest |gradient| plus 1e-7: index_add_ on the card
+    sums in no fixed order), the parameters after the step the Adam step of
+    their mean (1e-6 where |gradient| > 1e-5), and both kernels launch once
+    per round on each rank."""
+    dev = _device()
+    cfg, b0 = tiny_train_case(seed=0)
+    _, b1 = tiny_train_case(seed=1)
+    runs, mean, params = _single_steps(cfg, [b0, b1], dev, lr=1e-3)
+    ranks = _spawn_train(cfg, [b0, b1], 2, 1, tmp_path)
+    rounds = cfg.model.engine.num_rounds
+    for (grads, _), got in zip(runs, ranks):
+        assert got["launches"] == (rounds, rounds)
+        np.testing.assert_allclose(got["metrics"]["total"],
+                                   (runs[0][1] + runs[1][1]) / 2, rtol=1e-5)
+        for n, g in grads.items():
+            _close_grads(torch.zeros_like(g) if got["grads"][n] is None
+                         else got["grads"][n], g, n)
+            ok = mean[n].abs() > 1e-5
+            torch.testing.assert_close(got["params"][n][ok], params[n][ok],
+                                       rtol=0, atol=1e-6, msg=n)
+
+
+def test_edge_sharded_step_two_ranks_share_the_card(tmp_path):
+    """Data 1 x edge 2 on the one card: the two ranks' gradient shares sum
+    to the single-process step's gradient (the bound above), the ranks end
+    with equal parameters, and both kernels launch once per round on each
+    rank's share of the edges."""
+    dev = _device()
+    cfg, batch = tiny_train_case(seed=0)
+    runs, _, params = _single_steps(cfg, [batch], dev, lr=1e-3)
+    r0, r1 = _spawn_train(cfg, [batch], 1, 2, tmp_path)
+    rounds = cfg.model.engine.num_rounds
+    assert r0["launches"] == r1["launches"] == (rounds, rounds)
+    assert r0["epg_loc"] == [batch.graphs.edges_per_graph // 2]
+    np.testing.assert_allclose(r0["metrics"]["total"], runs[0][1], rtol=1e-5)
+    for n, g in runs[0][0].items():
+        share = [torch.zeros_like(g) if r["grads"][n] is None
+                 else r["grads"][n] for r in (r0, r1)]
+        _close_grads(share[0] + share[1], g, n)
+        assert torch.equal(r0["params"][n], r1["params"][n]), n
+        ok = g.abs() > 1e-5
+        torch.testing.assert_close(r0["params"][n][ok], params[n][ok],
+                                   rtol=0, atol=1e-6, msg=n)

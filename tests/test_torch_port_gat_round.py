@@ -80,7 +80,9 @@ def test_port_packing_matches_jax(npg, epg):
     pg = pack_graphs_dense([GraphSample(**s) for s in raw], npg, epg,
                            num_graphs=jg.num_graphs)
     for f in dataclasses.fields(pg):
-        want = getattr(jg, f.name)
+        # the port marks an edge-sharded batch by its process group, JAX by
+        # its mesh axis name: None on both for an unsharded batch
+        want = getattr(jg, {"edge_group": "edge_axis"}.get(f.name, f.name))
         got = getattr(pg, f.name)
         if isinstance(got, torch.Tensor):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want),

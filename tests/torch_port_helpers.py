@@ -94,7 +94,8 @@ def port_model(cfg, variables) -> PipelineModel:
 def port_graph(g) -> GraphBatch:
     t = {f.name: torch.from_numpy(np.array(getattr(g, f.name)))
          for f in dataclasses.fields(GraphBatch)
-         if f.name not in ("num_graphs", "nodes_per_graph", "edges_per_graph")}
+         if f.name not in ("num_graphs", "nodes_per_graph", "edges_per_graph",
+                           "edge_group")}
     return GraphBatch(**t, num_graphs=g.num_graphs,
                       nodes_per_graph=g.nodes_per_graph,
                       edges_per_graph=g.edges_per_graph)
