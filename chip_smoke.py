@@ -1741,7 +1741,8 @@ def phase_edge(dev):
     inputs whose sign differs at round-off set to the single process's);
     the two ranks' gradient shares sum to its gradient. Then bf16 steps (1
     warm-up, 3 counted): the epg_loc reached, ms per step, GAT launches;
-    then one data 2 x edge 2 step on 4 ranks (B=256 per data rank)."""
+    then one data 2 x edge 2 step on 4 ranks (B=256 per data rank).
+    Returns the GAT launches of the 1 x 2 run and of the 2 x 2 run."""
     import torch
     from graphvqa_tpu_torch.config import gat_config
     t0 = time.perf_counter()
@@ -1778,7 +1779,7 @@ def phase_edge(dev):
     more = _timing_line(f"multi edge bf16 data 2 x edge 2, B={B // 2} per "
                         f"data rank, first step", grid["edge_2x2"], rounds)
     log(f"[multi edge] phase {time.perf_counter() - t0:.1f}s")
-    return [launches[0] + more[0], launches[1] + more[1]]
+    return launches, more
 
 
 def _run_torchrun(nproc, args, name, timeout=600):
@@ -1927,10 +1928,11 @@ def phase_multi(dev, data):
     MULTI_DIR.mkdir(parents=True, exist_ok=True)
     kernels = phase_shard_kernels(dev)
     dp = phase_dp(dev)
-    edge = phase_edge(dev)
+    edge, edge_2x2 = phase_edge(dev)
     cli = phase_cli_dist(data)
     phase_convert(dev, data)
-    return dict(kernels=kernels, dp=dp, edge=edge, cli=cli)
+    return dict(kernels=kernels, dp=dp, edge=edge, edge_2x2=edge_2x2,
+                cli=cli)
 
 
 def card_line() -> str:
@@ -2015,7 +2017,8 @@ def main() -> None:
                              "cli": cli["forward"],
                              "onlysg": families["onlysg"]["forward"],
                              "exec": families["exec"]["forward"],
-                             "dp": multi["dp"][0], "edge": multi["edge"][0]},
+                             "dp": multi["dp"][0], "edge": multi["edge"][0],
+                             "edge_2x2": multi["edge_2x2"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ladder_max_abs_err": ladder["forward"],
         "shard_max_abs_err": max(r["forward_err"]
@@ -2033,7 +2036,8 @@ def main() -> None:
         "launches_by_path": {"train": train_bwd, "cli": cli["backward"],
                              "onlysg": families["onlysg"]["backward"],
                              "exec": families["exec"]["backward"],
-                             "dp": multi["dp"][1], "edge": multi["edge"][1]},
+                             "dp": multi["dp"][1], "edge": multi["edge"][1],
+                             "edge_2x2": multi["edge_2x2"][1]},
         "max_abs_err": max(r["max_abs_err"] for r in backward.values()),
         "ladder_max_abs_err": ladder["backward"],
         "shard_max_abs_err": max(r["backward_err"]

@@ -19,9 +19,9 @@ pickled torchtext vocabulary (no torchtext needed,
 (the trainer's output_dir, where it looks first): the embedding rows are
 indexed by that vocabulary's order. It works without ``--torch-ckpt`` too.
 
-The model's widths are ``--model``'s configuration (``--tiny``: the port's
-debug widths), its depths the flags below, and its vocabulary sizes those of
-the checkpoint's embeddings. The optimizer starts fresh; ``--epoch`` seeds
+The model's family is ``--model`` and its depths the flags below; its
+widths, vocabulary sizes and whether it has the execution engine are read
+from the checkpoint's tensors. The optimizer starts fresh; ``--epoch`` seeds
 the StepLR schedule (default: the checkpoint's saved epoch, else 0).
 """
 from __future__ import annotations
@@ -57,9 +57,6 @@ def get_args_parser():
                    help="engine rounds (default: the configuration's, 5)")
     p.add_argument("--lcgn-iters", type=int, default=None,
                    help="LCGN iterations (default: the configuration's, 4)")
-    p.add_argument("--use-execution-engine", action="store_true")
-    p.add_argument("--tiny", action="store_true",
-                   help="the port's debug-scale widths (train_cli --tiny)")
     p.add_argument("--epoch", type=int, default=None,
                    help="schedule position to record (default: the "
                         "checkpoint's saved epoch, else 0)")
@@ -67,30 +64,37 @@ def get_args_parser():
 
 
 def model_config(args, sd):
-    """The port's ModelConfig of ``--model`` at the checkpoint's sizes."""
-    from graphvqa_tpu_torch.cli.train_cli import tiny_widths
+    """The port's ModelConfig of ``--model`` at the checkpoint's widths and
+    vocabulary sizes (read from its tensors' shapes) and the flags' depths.
+    The attention heads are not in any shape: they stay the
+    configuration's, which the loaded tensors do not depend on."""
     from graphvqa_tpu_torch.config import CONFIG_FACTORY
     cfg = CONFIG_FACTORY[args.model]().model
-    if args.tiny:
-        cfg = tiny_widths(cfg)
     enc = args.num_encoder_layers or cfg.transformer.num_layers
     dec = args.num_decoder_layers or enc
     if enc != dec:
         raise SystemExit(f"--num-encoder-layers {enc} != --num-decoder-layers"
                          f" {dec}: the port builds one depth for both")
+    text = sd["text_vocab_embedding.weight"].shape
+    scene = sd["scene_graph_encoder.sg_vocab_embedding.weight"].shape
+    layer = "question_encoder.transformer_encoder.layers.0."
     return dataclasses.replace(
         cfg,
-        text=dataclasses.replace(
-            cfg.text, vocab_size=sd["text_vocab_embedding.weight"].shape[0]),
-        scene=dataclasses.replace(
-            cfg.scene, vocab_size=sd[
-                "scene_graph_encoder.sg_vocab_embedding.weight"].shape[0]),
-        transformer=dataclasses.replace(cfg.transformer, num_layers=enc),
+        text=dataclasses.replace(cfg.text, vocab_size=text[0],
+                                 emb_dim=text[1]),
+        scene=dataclasses.replace(cfg.scene, vocab_size=scene[0],
+                                  emb_dim=scene[1]),
+        transformer=dataclasses.replace(
+            cfg.transformer, num_layers=enc,
+            hidden_dim=sd[layer + "norm1.weight"].shape[0],
+            ffn_dim=sd[layer + "linear1.weight"].shape[0]),
         engine=dataclasses.replace(
             cfg.engine,
             num_rounds=args.num_rounds or cfg.engine.num_rounds,
             lcgn_iters=args.lcgn_iters or cfg.engine.lcgn_iters),
-        use_execution_engine=args.use_execution_engine)
+        classifier_hidden=sd["logit_fc.1.weight"].shape[0],
+        use_execution_engine=any(k.startswith("execution_engine.")
+                                 for k in sd))
 
 
 def main(args):

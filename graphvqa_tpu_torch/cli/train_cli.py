@@ -231,18 +231,6 @@ def _load_glove(args, text_vocab, sg_vocab, out_dir):
             cached("glove_sg.npy", sg_vocab) if args.glove_sg else None)
 
 
-def tiny_widths(model_cfg):
-    """``--tiny``: the debug-scale widths of tests and smoke runs."""
-    return dataclasses.replace(
-        model_cfg,
-        text=dataclasses.replace(model_cfg.text, emb_dim=48),
-        scene=dataclasses.replace(model_cfg.scene, emb_dim=48),
-        transformer=dataclasses.replace(
-            model_cfg.transformer, hidden_dim=64, num_heads=4, ffn_dim=128,
-            num_layers=2),
-        classifier_hidden=64)
-
-
 def build_config(args, text_vocab_size: int, sg_vocab_size: int):
     """The port's Config for these flags (``--model``'s configuration with
     the overrides the JAX CLI applies)."""
@@ -258,7 +246,14 @@ def build_config(args, text_vocab_size: int, sg_vocab_size: int):
         model_cfg = dataclasses.replace(model_cfg, engine=dataclasses.replace(
             model_cfg.engine, num_rounds=args.rounds))
     if args.tiny:
-        model_cfg = tiny_widths(model_cfg)
+        model_cfg = dataclasses.replace(
+            model_cfg,
+            text=dataclasses.replace(model_cfg.text, emb_dim=48),
+            scene=dataclasses.replace(model_cfg.scene, emb_dim=48),
+            transformer=dataclasses.replace(
+                model_cfg.transformer, hidden_dim=64, num_heads=4,
+                ffn_dim=128, num_layers=2),
+            classifier_hidden=64)
     if args.dropout is not None:
         model_cfg = dataclasses.replace(
             model_cfg,
@@ -321,9 +316,9 @@ def main(args):
     from graphvqa_tpu_torch.models.pipeline import build_model
     from graphvqa_tpu_torch.models.pretrained import (
         inject_pretrained_embeddings)
+    from graphvqa_tpu_torch.parallel.data_parallel import make_dp_train_step
     from graphvqa_tpu_torch.parallel.edge_sharded import (
-        make_dp_edge_train_step, make_edge_eval_step, prepare_dp_edge_batch,
-        prepare_edge_eval_batch)
+        make_edge_eval_step, prepare_dp_edge_batch, prepare_edge_eval_batch)
     from graphvqa_tpu_torch.parallel.mesh import (
         data_seed, make_mesh, maybe_init_distributed)
     from graphvqa_tpu_torch.train.checkpoint import (
@@ -449,8 +444,7 @@ def main(args):
           f"{time.perf_counter() - t0:.1f}s")
 
     K = max(args.steps_per_dispatch, 1)
-    train_step = (make_dp_edge_train_step(model, cfg, mesh,
-                                          steps_per_dispatch=K)
+    train_step = (make_dp_train_step(model, cfg, mesh, steps_per_dispatch=K)
                   if mesh.size > 1 else
                   make_train_step(model, cfg, steps_per_dispatch=K))
 

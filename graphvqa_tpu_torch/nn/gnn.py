@@ -53,7 +53,7 @@ from graphvqa_tpu_torch.nn.transformer import (
 from graphvqa_tpu_torch.ops import dense
 from graphvqa_tpu_torch.ops.dispatch import aggregate_edge_values
 from graphvqa_tpu_torch.ops.gat_round import gat_round, graph_logit_max
-from graphvqa_tpu_torch.parallel.collectives import pmax
+from graphvqa_tpu_torch.parallel.collectives import assemble_rows, pmax
 from graphvqa_tpu_torch.ops.segment import (
     gather_nodes, scatter_edges_to_nodes, segment_softmax, segment_sum)
 
@@ -208,7 +208,7 @@ class GATLayer(nn.Module):
         if return_alpha:
             out, alpha = out
         # an edge-sharded round gives its owned destinations' rows only
-        out = dense.assemble_rows(graph, out)
+        out = assemble_rows(out, graph.edge_group)
         out = torch.where(graph.node_mask[:, None], out + self.bias, 0.0)
         return (out, alpha) if return_alpha else out
 

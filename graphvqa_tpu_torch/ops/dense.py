@@ -12,12 +12,13 @@ The GAT round itself is :func:`graphvqa_tpu_torch.ops.gat_round.gat_round`.
 Under destination-ownership edge sharding (``graph.edge_group`` set, see
 ``parallel/edge_sharded.py``) a rank holds the edges of the destinations it
 owns. Every destination's softmax is then local, and the destination rows
-of the others stay 0; each aggregation ends in :func:`assemble_rows`, one
-all-reduce over the edge group that turns the ranks' disjoint rows into the
-replicated node rows. Gathers read the replicated node arrays as they are.
-The JAX package computes only the owned rows (a [B, npg/k] slice) and
-assembles them the same way; here the full rows are computed, as the index
-ops do not care which rows the edges point at.
+of the others stay 0; each aggregation ends in
+``parallel/collectives.py:assemble_rows``, one all-reduce over the edge
+group that turns the ranks' disjoint rows into the replicated node rows.
+Gathers read the replicated node arrays as they are. The JAX package
+computes only the owned rows (a [B, npg/k] slice) and assembles them the
+same way; here the full rows are computed, as the index ops do not care
+which rows the edges point at.
 """
 from __future__ import annotations
 
@@ -26,8 +27,7 @@ import os
 import torch
 
 from graphvqa_tpu_torch.core.graph import GraphBatch
-from graphvqa_tpu_torch.parallel.collectives import assemble_rows as _assemble
-from graphvqa_tpu_torch.parallel.collectives import pmax
+from graphvqa_tpu_torch.parallel.collectives import assemble_rows, pmax
 
 NEG_INF = -1e30
 SOFTMAX_EPS = 1e-16  # torch_geometric.utils.softmax denominator
@@ -50,13 +50,6 @@ def dense_local_indices(graph: GraphBatch):
     dl = (graph.edge_dst % npg).reshape(B, epg).to(torch.int32)
     sl = (graph.edge_src % npg).reshape(B, epg).to(torch.int32)
     return dl.contiguous(), sl.contiguous()
-
-
-def assemble_rows(graph: GraphBatch, out: torch.Tensor) -> torch.Tensor:
-    """Per-node rows [N, ...] of an aggregation -> the replicated rows:
-    the sum over the edge group of its ranks' disjoint destination rows
-    (the identity on a batch that is not edge-sharded)."""
-    return _assemble(out, graph.edge_group)
 
 
 def _masked_edges(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:
@@ -88,7 +81,7 @@ def dense_aggregate_edges(graph: GraphBatch, edge_values: torch.Tensor,
         counts.index_add_(0, graph.edge_dst, graph.edge_mask.float())
         out = out / counts.clamp(min=1.0)[:, None]
     # each destination's count is local (ownership): mean before assembling
-    return assemble_rows(graph, out.to(edge_values.dtype))
+    return assemble_rows(out.to(edge_values.dtype), graph.edge_group)
 
 
 def broadcast_to_nodes(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:
@@ -166,7 +159,8 @@ def dense_scatter_matmul(graph: GraphBatch, edge_weights: torch.Tensor,
     p = p.reshape(B, H, npg, npg).to(dt)
     v = values.reshape(B, npg, H, C).transpose(1, 2)          # [B, H, npg, C]
     out = torch.matmul(p.float(), v.float())                  # f32 accumulate
-    return assemble_rows(graph, out.transpose(1, 2).reshape(N, H, C).to(dt))
+    return assemble_rows(out.transpose(1, 2).reshape(N, H, C).to(dt),
+                         graph.edge_group)
 
 
 def dense_node_softmax(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:

@@ -7,10 +7,10 @@ edges whose local destination index ``i`` has ``i % K == e``
 rank. Each aggregation (the GAT round, the MetaLayer's and the engines'
 edge sums, the weighted scatter) gives the owned destinations' rows, and
 one all-reduce over the edge group assembles them into the replicated node
-rows (``ops/dense.py:assemble_rows``). Everything on the node path
-(projections, BatchNorm, transformers, pooling) is computed alike on every
-edge rank: exchanging projected features would cost more than recomputing
-them. The GAT kernels run on each rank's share at ``(npg, epg_loc)``.
+rows (``parallel/collectives.py:assemble_rows``). Everything on the node
+path (projections, BatchNorm, transformers, pooling) is computed alike on
+every edge rank: exchanging projected features would cost more than
+recomputing them. The GAT kernels run on each rank's share at ``(npg, epg_loc)``.
 
 Gradients: each rank scales its loss by 1/K and the assembly sums the
 cotangent shares in its backward (``parallel/collectives.py:AssembleRows``),
@@ -162,13 +162,11 @@ def prepare_edge_eval_batch(batch: QABatch, mesh: Mesh,
     return prepare_dp_edge_batch([batch], mesh, edges_per_shard)[0]
 
 
-def make_dp_edge_train_step(model: PipelineModel, cfg: Config, mesh: Mesh,
-                            steps_per_dispatch: int = 1) -> Callable:
-    """The train step on a data x edge mesh: make_dp_train_step's, which
-    scales each rank's loss by 1/K and sums the shares with the data
-    ranks' gradients in its one all-reduce. Batches come from
-    :func:`prepare_dp_edge_batch` (a list of K for K steps per call)."""
-    return make_dp_train_step(model, cfg, mesh, steps_per_dispatch)
+# The JAX package's name for the train step on a data x edge mesh: it is
+# make_dp_train_step, whose one all-reduce sums the edge ranks' gradient
+# shares (each rank scales its loss by 1/K) with the data ranks' gradients.
+# Batches come from prepare_dp_edge_batch (a list of K for K steps a call).
+make_dp_edge_train_step = make_dp_train_step
 
 
 def make_edge_eval_step(model: PipelineModel, cfg: Config,

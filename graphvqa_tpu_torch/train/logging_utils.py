@@ -52,15 +52,9 @@ class AverageMeter:
     def synchronize(self, group=None):
         """Fold in the (sum, count) of every other rank of ``group`` so that
         ``avg`` is global (the reference's
-        ``SmoothedValue.synchronize_between_processes``). Repeatable: the
-        local updates stay local and the others' share is gathered anew.
-        A collective: every rank of ``group`` calls it equally often."""
-        from graphvqa_tpu_torch.parallel.collectives import all_gather_host
-        if group is None:
-            return
-        parts = all_gather_host((self.sum, self.count), group)
-        self._ext_sum = float(sum(p[0] for p in parts)) - self.sum
-        self._ext_count = int(sum(p[1] for p in parts)) - self.count
+        ``SmoothedValue.synchronize_between_processes``); see
+        :func:`synchronize_meters`."""
+        synchronize_meters([self], group)
 
     @property
     def avg(self) -> float:
@@ -74,6 +68,21 @@ class AverageMeter:
     def __str__(self):
         fmtstr = "{name} {val" + self.fmt + "} ({avg" + self.fmt + "})"
         return fmtstr.format(name=self.name, val=self.val, avg=self.avg)
+
+
+def synchronize_meters(meters: List[AverageMeter], group=None) -> None:
+    """Every meter's :meth:`AverageMeter.synchronize` in one gather of the
+    meters' (sum, count) pairs over ``group`` (nothing without a group).
+    Repeatable: the local updates stay local and the other ranks' share is
+    gathered anew. A collective: every rank of ``group`` calls it equally
+    often."""
+    from graphvqa_tpu_torch.parallel.collectives import all_gather_host
+    if group is None:
+        return
+    parts = all_gather_host([(m.sum, m.count) for m in meters], group)
+    for i, m in enumerate(meters):
+        m._ext_sum = float(sum(p[i][0] for p in parts)) - m.sum
+        m._ext_count = int(sum(p[i][1] for p in parts)) - m.count
 
 
 class ProgressMeter:

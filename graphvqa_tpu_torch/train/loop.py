@@ -37,7 +37,8 @@ from graphvqa_tpu_torch.config import Config
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.models.pipeline import PipelineModel
 from graphvqa_tpu_torch.nn.execution import bitmap_precision_recall
-from graphvqa_tpu_torch.train.logging_utils import AverageMeter, ProgressMeter
+from graphvqa_tpu_torch.train.logging_utils import (
+    AverageMeter, ProgressMeter, synchronize_meters)
 from graphvqa_tpu_torch.train.losses import total_loss
 from graphvqa_tpu_torch.train.metrics import (
     program_match_vectors, program_string_exact_match_acc,
@@ -250,12 +251,6 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
     return state
 
 
-def _sync_meters(group, *meters):
-    """The meters' cross-rank averages (nothing without a group)."""
-    for m in meters:
-        m.synchronize(group)
-
-
 def _start_profiler():
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
@@ -379,6 +374,7 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
     pne = AverageMeter("Acc@ProgramNonEmpty", ":4.2f")
     bprec = AverageMeter("Bitmap@Precision", ":4.2f")
     brec = AverageMeter("Bitmap@Recall", ":4.2f")
+    meters = [sa, pa, pg, pne, bprec, brec]
     progress = ProgressMeter(0, [sa, pa, pg, pne], prefix="Test: ")
     quesid2ans, attentions_out = {}, []
     M = cfg.model.max_execution_steps
@@ -446,11 +442,11 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
                 meta, _host(node_att), _host(batch.graphs.node_graph), scenes,
                 real)
         if i % print_freq == 0:
-            _sync_meters(data_group, sa, pa, pg, pne, bprec, brec)
+            synchronize_meters(meters, data_group)
             progress.display(i)
     # iter_batches gives every data shard the same number of batches, so
     # every rank reaches this collective equally often
-    _sync_meters(data_group, sa, pa, pg, pne, bprec, brec)
+    synchronize_meters(meters, data_group)
     progress.display(i + 1)
     wall = time.perf_counter() - eval_t0
     print(f"  eval sustained: {total_real / max(wall, 1e-9):.1f} qa/s "

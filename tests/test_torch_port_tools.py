@@ -3,6 +3,7 @@ preprocessor, the tokenizer audit (and the preprocess CLI's
 ``--audit-tokens``), the torchtext-free vocabulary import, the checkpoint
 converter and the visualizers. Outputs are compared exactly: byte for byte
 (files) or equal (reports, logits)."""
+import dataclasses
 import json
 import pathlib
 import shutil
@@ -139,7 +140,8 @@ def test_converted_checkpoint_resumes_with_the_saved_logits(tmp_path):
     ckpt = out / "ckpt_converted"
     convert_main(convert_parser().parse_args([
         "--torch-ckpt", str(tmp_path / "reference.pth"), "--out", str(ckpt),
-        "--model", "gat", "--tiny", "--num-rounds", "2"]))
+        "--model", "gat", "--num-encoder-layers", "2",
+        "--num-decoder-layers", "2", "--num-rounds", "2"]))
     fresh = build_model(cfg.model, device="cpu", seed=99)
     state, start = restore_checkpoint(ckpt, create_train_state(fresh))
     assert (state.epoch, start) == (3, 4)
@@ -161,6 +163,27 @@ def test_converted_checkpoint_resumes_with_the_saved_logits(tmp_path):
     got = json.loads((out / "dump_results.json").read_text())
     assert got == json.loads((tmp_path / "want.json").read_text())
     assert len(got) == 7
+
+
+@pytest.mark.parametrize("family,engine", [("gat", False), ("gat", True),
+                                           ("lcgn", False)])
+def test_converter_reads_the_model_from_the_checkpoint(family, engine):
+    """The converter's model config takes the widths, the vocabulary sizes
+    and the execution engine from the checkpoint's tensors: a --tiny model
+    (not the configuration's widths) loads without a flag for them."""
+    from graphvqa_tpu_torch.cli.convert_ckpt_cli import model_config
+    args = train_parser().parse_args(
+        ["--model", family, "--tiny", "--rounds", "2", "--data-root", "."]
+        + (["--use-execution-engine"] if engine else []))
+    want = build_config(args, 40, 30).model
+    sd = build_model(want, device="cpu", seed=0).state_dict()
+    got = model_config(convert_parser().parse_args(
+        ["--model", family, "--num-encoder-layers", "2",
+         "--num-rounds", "2"]), sd)
+    # the heads are in no tensor's shape: the configuration's stay
+    assert got == dataclasses.replace(want, transformer=dataclasses.replace(
+        want.transformer, num_heads=got.transformer.num_heads))
+    build_model(got, device="cpu", seed=0).load_state_dict(sd)
 
 
 def test_visualizers_write_images(tmp_path):
