@@ -21,12 +21,15 @@ Phases, in order; any failure exits non-zero:
               units the kernel's counter handed out per launch
   4. parity   the full-width gat_config() model (random seeded weights,
               random BatchNorm statistics, bf16) on B=8, card against CPU
-  5. serve    make_eval_step on 3 requests of B=512 at full width; the kernel
-              must run exactly 5 times per request; ms per step and QA/s
+  5. serve    make_eval_step on 3 requests of B=512 at full width, each the
+              replay of the step's CUDA graph (after the eager warm-up and
+              the capture); the kernel must run exactly 5 times per request;
+              ms per step and QA/s, capture seconds, peak memory
   6. profile  where one more request's time goes: stage times on the host
               clock, the device's busy share and its heaviest kernels
-  7. train    make_train_step at full width on B=512: 1 warm-up and 5
-              counted steps; both kernels must run exactly 5 times per step;
+  7. train    make_train_step at full width on B=512: the eager warm-up,
+              the capture and 5 counted replays; both kernels must run
+              exactly 5 times per step (counted under replay);
               ms per step, QA/s, the loss of each step, then one profiled
               step: device busy share and heaviest kernels
   8. train-parity  one float32 train step of the full-width model on B=8,
@@ -90,7 +93,22 @@ Phases, in order; any failure exits non-zero:
               question once. (e) convert_ckpt_cli on a reference-format
               checkpoint of the seeded full-width model, restored logits
               equal, --resume --evaluate on the card. Several ranks on one
-              card measure the port's overheads, not scaling
+              card measure the port's overheads, not scaling; their steps
+              run eagerly (gloo's collectives cannot be captured)
+ 14. graphs   the steps as CUDA graphs at full width, B=512: three f32
+              train steps with dropout, captured (warm-up, capture, replay)
+              against eager from the same weights and generator seed under
+              deterministic algorithms (losses, parameters, gradients and
+              running statistics bitwise, or else phase 8's limits, with
+              the largest difference printed); a bf16 eval request captured
+              against eager (greedy tokens, top logit, attention bitwise);
+              ms per step captured and eager for bf16 eval and train, each
+              one's profiled device busy time, kernels and host launch
+              calls; GAT launches per step counted under replay (5 eval,
+              5 + 5 train); a batch at the smallest bumped rung of phase 9's
+              data captures a second train and eval graph, after which the
+              main rung replays without a capture; capture seconds per rung
+              and peak memory with the graphs cached
 
 Each phase's seconds print as "[seconds] phase N".
 
@@ -183,16 +201,18 @@ def gqa_samples(num_graphs, seed, avg_nodes=17, avg_edges=90):
     return samples
 
 
-def qa_batch(cfg, num_graphs, seed):
-    """A synthetic request: GQA-shaped graphs and random token streams with
-    config.BatchConfig's lengths (question 32, program 16, answer 20)."""
+def qa_batch(cfg, num_graphs, seed, graphs=None):
+    """A synthetic request: GQA-shaped graphs (or ``graphs``) and random
+    token streams with config.BatchConfig's lengths (question 32, program
+    16, answer 20)."""
     import numpy as np
     import torch
     from graphvqa_tpu_torch.core.graph import QABatch
     from graphvqa_tpu_torch.core.packing import pack_graphs_dense
     bc, mc = cfg.batch, cfg.model
-    graphs = pack_graphs_dense(gqa_samples(num_graphs, seed), NPG, EPG,
-                               max_steps=mc.max_execution_steps)
+    if graphs is None:
+        graphs = pack_graphs_dense(gqa_samples(num_graphs, seed), NPG, EPG,
+                                   max_steps=mc.max_execution_steps)
     rng = np.random.default_rng(seed + 1)
     V = mc.text.vocab_size
 
@@ -593,6 +613,15 @@ def phase_parity(cfg, dev, model_gpu, tag="parity", relative=False):
     del model_cpu
 
 
+def peak_gib(dev) -> str:
+    """The peak of allocated memory since the last reset, and of the
+    caching allocator's reserve (a graph's pool stays reserved)."""
+    import torch
+    return (f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
+            f"allocated, {torch.cuda.max_memory_reserved(dev) / 2**30:.2f} "
+            f"GiB reserved")
+
+
 def gat_rounds(cfg):
     """GAT-kernel launches per step (forward, or backward) of a config:
     one per round on the gat engines (gat, and onlysg's "none"), none on
@@ -602,17 +631,21 @@ def gat_rounds(cfg):
 
 
 def phase_serve(cfg, dev, model, tag="serve", ctx=None):
-    """make_eval_step on 1 warm-up and 3 counted B=512 requests (counts set
-    to 0 just before them and read just after); ``ctx`` is LCGN's
-    generator."""
+    """make_eval_step, a CUDA graph replayed per request, on 3 counted
+    B=512 requests after the eager warm-up and the capture (counts set to 0
+    just before them and read just after); ``ctx`` is LCGN's generator."""
     import torch
     from graphvqa_tpu_torch.ops.gat_round import gat_round
     from graphvqa_tpu_torch.train.loop import make_eval_step
     step = make_eval_step(model, cfg)
     requests = [qa_batch(cfg, B, seed=100 + i).to(dev) for i in range(4)]
-    step(requests[0], ctx)                             # warm-up request
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(2):                  # the eager warm-up, then the capture
+        step(requests[0], ctx)
+    torch.cuda.synchronize()
+    if (step.graphs.captures, step.graphs.replays) != (1, 1):
+        fail(f"{tag}: the eval step captured {step.graphs.captures} graphs "
+             f"and replayed {step.graphs.replays} in its first two requests")
     gat_round.launches = 0
     times, outs = [], []
     for req in requests[1:]:
@@ -644,11 +677,11 @@ def phase_serve(cfg, dev, model, tag="serve", ctx=None):
                 or not torch.isfinite(bitmap).all()):
             fail(f"{tag}: execution bitmap missing, misshapen or not finite")
     ms = [t * 1e3 for t in times]
-    log(f"[{tag}] {len(times)} requests of B={B}: ms/step "
+    log(f"[{tag}] {len(times)} replayed requests of B={B}: ms/step "
         f"{', '.join(f'{m:.2f}' for m in ms)} (mean {statistics.mean(ms):.2f}),"
         f" QA/s {B / statistics.mean(times):.1f}, gat_round launches "
-        f"{launches}, peak memory "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        f"{launches}, capture {sum(step.graphs.capture_seconds.values()):.2f}s"
+        f", peak memory {peak_gib(dev)}")
     return launches, step, requests[-1]
 
 
@@ -689,9 +722,18 @@ def phase_profile(model, step, request):
     profiled_step(lambda: step(request), "profile", 10)
 
 
+# the host's calls that put work on the card: kernel launches, graph
+# launches, and the copies and fills the caching allocator's users enqueue
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def profiled_step(fn, tag, top):
     """One call of ``fn`` under torch.profiler: wall time, the device's
-    busy share and its ``top`` heaviest kernels."""
+    busy share, the host's launch calls (``HOST_LAUNCH_CALLS``) and its
+    ``top`` heaviest kernels -> dict(wall_ms, busy_ms, kernels,
+    host_launches), None when the profiler saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -704,9 +746,13 @@ def profiled_step(fn, tag, top):
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [ev for ev in prof.events()
                if ev.device_type == DeviceType.CUDA]
+    launches = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in HOST_LAUNCH_CALLS:
+            launches[ev.name] = launches.get(ev.name, 0) + 1
     if not kernels:
         log(f"[{tag}] the profiler recorded no device time: not measured")
-        return
+        return None
     busy_us = sum(ev.time_range.elapsed_us() for ev in kernels)
     by_name = {}
     for ev in kernels:
@@ -714,15 +760,19 @@ def profiled_step(fn, tag, top):
         by_name[ev.name] = (n + 1, t + ev.time_range.elapsed_us())
     log(f"[{tag}] one profiled step: wall {wall_us / 1e3:.2f} ms, "
         f"{len(kernels)} device kernels, device busy {busy_us / 1e3:.2f} ms "
-        f"= {100 * busy_us / wall_us:.1f}% of wall")
+        f"= {100 * busy_us / wall_us:.1f}% of wall; host launch calls "
+        f"{sum(launches.values())} {launches}")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"[{tag}]   {t / 1e3:8.3f} ms {n:6d}x  {name[:90]}")
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3,
+                kernels=len(kernels), host_launches=sum(launches.values()))
 
 
 def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
-    """The full-width train step on B=512: 1 warm-up and ``steps`` counted
-    steps (counts set to 0 just before them and read just after), then one
-    profiled step. ``ctx`` is LCGN's generator."""
+    """The full-width train step on B=512, a CUDA graph replayed per step:
+    the eager warm-up, the capture and ``steps`` counted steps (counts set
+    to 0 just before them and read just after), then one profiled step.
+    ``ctx`` is LCGN's generator."""
     import torch
     from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
     from graphvqa_tpu_torch.train.loop import make_train_step
@@ -734,11 +784,16 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
     step = make_train_step(model, cfg)
     batch = qa_batch(cfg, B, seed=200).to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     step(state, batch, gen, ctx)                        # warm-up step
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
+    step(state, batch, gen, ctx)                        # the capture
+    torch.cuda.synchronize()
+    if (step.graphs.captures, step.graphs.replays) != (1, 1):
+        fail(f"{tag}: the train step captured {step.graphs.captures} graphs "
+             f"and replayed {step.graphs.replays} in its first two steps")
     gat_round.launches = gat_round_backward.launches = 0
     times, losses = [], []
     for _ in range(steps):
@@ -761,11 +816,13 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
         f"{cfg.model.transformer.dropout}/{cfg.model.engine.dropout}/"
         f"{cfg.model.classifier_dropout}, lr {tc.lr}): ms/step "
         f"{', '.join(f'{v:.2f}' for v in ms)} (mean {statistics.mean(ms):.2f}"
-        f", warm-up {warm * 1e3:.0f}), QA/s {B / statistics.mean(times):.1f}"
+        f", warm-up {warm * 1e3:.0f}, capture "
+        f"{sum(step.graphs.capture_seconds.values()) * 1e3:.0f}), QA/s "
+        f"{B / statistics.mean(times):.1f}"
         f"; loss per step {', '.join(f'{v:.5f}' for v in losses)} (last: "
         f"{parts}); launches per step gat_round {fwd // len(times)}, "
         f"gat_round_backward {bwd // len(times)}; peak memory "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        f"{peak_gib(dev)}")
     profiled_step(lambda: step(state, batch, gen, ctx), tag, top)
     return fwd, bwd
 
@@ -1154,6 +1211,15 @@ def phase_cli(cfg, dev, data):
         fail(f"CLI epoch: gat_round {f_tr} / gat_round_backward {b_tr} "
              f"launches for {kernel_steps} dense steps, expected {rounds} "
              f"each per step")
+    shapes, warm, caps, cap_s, replays = _last_match(
+        r"step graphs \(train epoch 0\): (\d+) shapes, (\d+) warm-ups, "
+        r"(\d+) captures \(([\d.]+)s\), (\d+) replays", train_out,
+        "train step graphs")
+    if int(warm) + int(replays) != steps:
+        fail(f"CLI epoch: {warm} warm-ups and {replays} graph replays for "
+             f"{steps} steps")
+    graphs_line = (f"{shapes} shapes, {warm} warm-ups, {caps} captures "
+                   f"({cap_s}s), {replays} replays")
     val_q = int(_last_match(r"eval sustained: [\d.]+ qa/s \((\d+) questions",
                             train_out, "validation summary"))
     f_val = int(_last_match(r"kernel launches \(validate epoch 0\): "
@@ -1200,7 +1266,8 @@ def phase_cli(cfg, dev, data):
         f"{ends[0]:.2f}s; then {steady_ms:.1f} ms per step = "
         f"{1e3 / steady_ms:.2f} steps/s, {B * 1e3 / steady_ms:.1f} QA/s), "
         f"data-wait {wait:.1f}%, layouts {layouts}, launches gat_round "
-        f"{f_tr} gat_round_backward {b_tr}; validation {val_q} questions, "
+        f"{f_tr} gat_round_backward {b_tr}, step graphs {graphs_line}; "
+        f"validation {val_q} questions, "
         f"gat_round {f_val}; process {train_s:.1f}s")
     log(f"[cli] --resume --evaluate: {eval_q} questions at {eval_qa_s:.1f} "
         f"QA/s, gat_round {f_ev} launches, dumps {len(dump)} results / "
@@ -1355,6 +1422,267 @@ def phase_cli_lcgn(data):
         f"{', '.join(f'{v:.5f}' for v in losses)}, epoch {qa_s} QA/s, "
         f"validation {res}, GAT launches 0 / 0; process {secs:.1f}s, phase "
         f"{time.perf_counter() - t0:.1f}s")
+
+
+# --- phase 14: the steps as CUDA graphs ---------------------------------------
+
+def rung_batch(cfg, data, rung, seed):
+    """A B=512 request at ``rung`` (npg, epg): the graphs of a batch that
+    phase 9's collate put there (their edges; tokens drawn as gqa_samples
+    draws them, in the model's vocabularies), the token streams as qa_batch
+    makes them."""
+    import dataclasses
+    import numpy as np
+    from graphvqa_tpu_torch.core.packing import pack_graphs_dense
+    ds, idx = data["ds"], data["rung_batches"][rung]
+    rng = np.random.default_rng(seed)
+    samples = []
+    for i in idx[:B]:
+        g = ds[int(i)]["graph"]
+        samples.append(dataclasses.replace(
+            g, exec_bitmap=None,
+            node_tokens=rng.integers(2, 2000, size=(
+                len(g.node_tokens), 12)).astype(np.int32),
+            edge_tokens=rng.integers(2, 2000, size=(
+                len(g.edge_src), 1)).astype(np.int32)))
+    graphs = pack_graphs_dense(samples, *rung,
+                               max_steps=cfg.model.max_execution_steps)
+    return qa_batch(cfg, B, seed, graphs=graphs)
+
+
+def _outputs_diff(a, b):
+    """(all equal bit for bit, largest |difference|) of two nests of
+    tensors."""
+    import torch
+    flat_a, flat_b = [], []
+    for x, out in ((a, flat_a), (b, flat_b)):
+        stack = [x]
+        while stack:
+            v = stack.pop()
+            if isinstance(v, torch.Tensor):
+                out.append(v)
+            elif isinstance(v, dict):
+                stack.extend(v[k] for k in sorted(v))
+            else:
+                stack.extend(v)
+    equal = len(flat_a) == len(flat_b) and all(
+        torch.equal(x, y) for x, y in zip(flat_a, flat_b))
+    diff = max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(flat_a, flat_b))
+    return equal, diff
+
+
+def graphs_train_parity(dev, tag):
+    """Three float32 train steps with dropout on, B=512 at full width,
+    captured (warm-up, capture, replay) against eager, from the same weights
+    and generator seed, under deterministic algorithms: the loss of each
+    step, then every parameter, gradient and running statistic after the
+    third, bitwise, or else within phase 8's limits."""
+    import dataclasses
+    import torch
+    from graphvqa_tpu_torch.config import gat_config
+    from graphvqa_tpu_torch.train.loop import make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    base = gat_config()
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, dtype="float32"))
+    batches = [qa_batch(cfg, B, seed=300 + i).to(dev) for i in range(3)]
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("captured", "eager"):
+            model = full_model(cfg, dev)
+            state = create_train_state(model, lr=cfg.train.lr,
+                                       weight_decay=cfg.train.weight_decay)
+            step = make_train_step(model, cfg, capture=mode == "captured")
+            gen = torch.Generator(device=dev).manual_seed(5)
+            losses = []
+            for batch in batches:
+                state, m = step(state, batch, gen)
+                losses.append(float(m["total"]))
+            torch.cuda.synchronize()
+            runs[mode] = dict(step_record(model, state, m), losses=losses)
+            if mode == "captured" and (
+                    step.graphs.warm_ups, step.graphs.captures,
+                    step.graphs.replays) != (1, 1, 2):
+                fail(f"{tag}: the f32 steps ran {step.graphs.warm_ups} "
+                     f"warm-ups, {step.graphs.captures} captures and "
+                     f"{step.graphs.replays} replays, not 1, 1, 2")
+            del model, state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cap, eag = runs["captured"], runs["eager"]
+    keys = ("params", "grads", "stats")
+    equal, diff = _outputs_diff([cap[k] for k in keys],
+                                [eag[k] for k in keys])
+    equal = equal and cap["losses"] == eag["losses"]
+    if not equal:
+        held = hold_train_step(eag, cap, tag, "captured", "eager")
+        for i, (a, b) in enumerate(zip(cap["losses"], eag["losses"])):
+            if abs(a - b) > TRAIN_LOSS_RTOL * abs(b):
+                fail(f"{tag}: f32 step {i}: captured loss {a} eager {b}")
+    log(f"[{tag}] f32 train, 3 steps with dropout "
+        f"{cfg.model.transformer.dropout}/{cfg.model.engine.dropout}/"
+        f"{cfg.model.classifier_dropout}, captured (warm-up, capture, "
+        f"replay) against eager: losses {cap['losses']} / {eag['losses']}; "
+        + ("parameters, gradients and running statistics bitwise equal"
+           if equal else f"not bitwise (largest difference {diff:.3e}); "
+           f"phase 8's limits: {held}"))
+    return dict(bitwise=equal, max_diff=diff)
+
+
+def timed_steps(fn, n):
+    """ms of ``n`` calls of ``fn`` after an untimed one (the allocator's
+    cache refills after a capture emptied it), each ending in a
+    synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def phase_graphs(dev, data):
+    """Phase 14: the train and eval steps as CUDA graphs at full width,
+    B=512: the f32 train steps captured against eager; a bf16 eval request
+    captured against eager; a bumped rung's second graph; ms per step
+    captured and eager, each one's device busy time and host launch calls,
+    capture seconds per rung, peak memory, and the GAT launches per step
+    counted under replay."""
+    import torch
+    from graphvqa_tpu_torch.config import gat_config
+    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    tag = "graphs"
+    t_phase = time.perf_counter()
+    out = dict(train_parity=graphs_train_parity(dev, tag))
+    cfg = gat_config()
+    rounds = gat_rounds(cfg)
+    main = (NPG, EPG)
+    above = [r for r in data["rung_batches"] if r[0] * r[1] > NPG * EPG]
+    if not above:
+        fail(f"{tag}: phase 9 reached no rung above {main}")
+    bumped = min(above, key=lambda r: (r[0] * r[1], r))
+    model = full_model(cfg, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # eval: captured against eager on the same requests, then the times
+    requests = [qa_batch(cfg, B, seed=400 + i).to(dev) for i in range(3)]
+    eager_eval = make_eval_step(model, cfg, capture=False)
+    # a graph captured under deterministic algorithms keeps their kernels
+    # (and the fills of fresh memory): this one serves the comparison only
+    det_eval = make_eval_step(model, cfg)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for req in requests[:2]:        # the warm-up, then the capture
+            det_eval(req)
+        equal, diff = _outputs_diff(det_eval(requests[2]),
+                                    eager_eval(requests[2]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del det_eval
+    cap_eval = make_eval_step(model, cfg)
+    for req in requests[:2]:
+        cap_eval(req)
+    if not equal:
+        fail(f"{tag}: the captured eval request differs from the eager one "
+             f"(largest difference {diff:.3e}: greedy tokens, top logit, "
+             f"node attention)")
+    gat_round.launches = 0
+    eval_ms = {"captured": timed_steps(lambda: cap_eval(requests[1]), 3)}
+    eval_launches = gat_round.launches
+    if eval_launches != rounds * 4:
+        fail(f"{tag}: {eval_launches} gat_round launches in 4 replayed "
+             f"requests, expected {rounds} per request")
+    eval_ms["eager"] = timed_steps(lambda: eager_eval(requests[1]), 3)
+    eval_prof = {mode: profiled_step(lambda: step(requests[1]),
+                                     f"{tag} eval {mode}", 5)
+                 for mode, step in (("captured", cap_eval),
+                                    ("eager", eager_eval))}
+
+    # train: captured (warm-up, capture, 5 counted) and eager on one state
+    state = create_train_state(model, lr=cfg.train.lr,
+                               weight_decay=cfg.train.weight_decay)
+    cap_train = make_train_step(model, cfg)
+    eager_train = make_train_step(model, cfg, capture=False)
+    batch = qa_batch(cfg, B, seed=200).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):                  # the warm-up, then the capture
+        cap_train(state, batch, gen)
+    gat_round.launches = gat_round_backward.launches = 0
+    train_ms = {"captured": timed_steps(
+        lambda: cap_train(state, batch, gen), 5)}
+    train_launches = (gat_round.launches, gat_round_backward.launches)
+    if train_launches != (rounds * 6, rounds * 6):
+        fail(f"{tag}: gat_round {train_launches[0]} and gat_round_backward "
+             f"{train_launches[1]} launches in 6 replayed train steps, "
+             f"expected {rounds} each per step")
+    train_ms["eager"] = timed_steps(lambda: eager_train(state, batch, gen), 5)
+    train_prof = {mode: profiled_step(lambda: step(state, batch, gen),
+                                      f"{tag} train {mode}", 5)
+                  for mode, step in (("captured", cap_train),
+                                     ("eager", eager_train))}
+    peak = peak_gib(dev)
+
+    # a bumped rung captures a second graph; the main rung then replays
+    big = rung_batch(cfg, data, bumped, seed=500).to(dev)
+    for _ in range(2):
+        cap_train(state, big, gen)
+        cap_eval(big)
+    before = (cap_train.graphs.captures, cap_eval.graphs.captures)
+    cap_train(state, batch, gen)
+    cap_eval(requests[0])
+    after = (cap_train.graphs.captures, cap_eval.graphs.captures)
+    if before != (2, 2) or after != before or (
+            len(cap_train.graphs.graphs), len(cap_eval.graphs.graphs)) != (2, 2):
+        fail(f"{tag}: captures {before} after the bumped rung and {after} "
+             f"after the main rung's replay; graphs "
+             f"{len(cap_train.graphs.graphs)} / {len(cap_eval.graphs.graphs)}"
+             f", expected 2 and 2, 2 / 2")
+    torch.cuda.synchronize()
+    # each step's keys in capture order: the main rung, then the bumped one
+    capture_s = {name: dict(zip((str(main), str(bumped)), (
+        round(v, 3) for v in graphs.capture_seconds.values())))
+        for name, graphs in (("train", cap_train.graphs),
+                             ("eval", cap_eval.graphs))}
+
+    def summary(ms):
+        return (f"{', '.join(f'{v:.2f}' for v in ms)} (mean "
+                f"{statistics.mean(ms):.2f})")
+
+    for name, times, prof in (("eval", eval_ms, eval_prof),
+                              ("train", train_ms, train_prof)):
+        parts = []
+        for mode in ("captured", "eager"):
+            p = prof[mode] or {}
+            parts.append(
+                f"{mode} {summary(times[mode])} ms/step, profiled: wall "
+                f"{p.get('wall_ms', float('nan')):.2f} ms, device busy "
+                f"{p.get('busy_ms', float('nan')):.2f} ms, "
+                f"{p.get('kernels', 0)} kernels, "
+                f"{p.get('host_launches', 0)} host launch calls")
+        log(f"[{tag}] {name} B={B} bf16: " + "; ".join(parts))
+    log(f"[{tag}] capture seconds per rung: {capture_s}; bumped rung "
+        f"{bumped} captured a second graph each, the main rung "
+        f"{main} then replayed (captures {after}); eval captured = eager "
+        f"bit for bit (deterministic algorithms); GAT launches counted "
+        f"under replay: eval {eval_launches // 4}, train "
+        f"{train_launches[0] // 6} + {train_launches[1] // 6} per step; peak "
+        f"memory with both main-rung graphs cached {peak}, with the bumped "
+        f"rung's too {peak_gib(dev)}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    del model, state
+    torch.cuda.empty_cache()
+    out.update(eval_forward=eval_launches, train=train_launches)
+    return out
 
 
 # --- phase 13: the multi-device paths ----------------------------------------
@@ -2004,6 +2332,8 @@ def main() -> None:
     done("12 families")
     multi = phase_multi(dev, data)
     done("13 multi")
+    graphs = phase_graphs(dev, data)
+    done("14 graphs")
 
     card = card_line()
     fwd = kernel[("bfloat16", "graph", True)]
@@ -2018,7 +2348,9 @@ def main() -> None:
                              "onlysg": families["onlysg"]["forward"],
                              "exec": families["exec"]["forward"],
                              "dp": multi["dp"][0], "edge": multi["edge"][0],
-                             "edge_2x2": multi["edge_2x2"][0]},
+                             "edge_2x2": multi["edge_2x2"][0],
+                             "graphs_eval": graphs["eval_forward"],
+                             "graphs_train": graphs["train"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ladder_max_abs_err": ladder["forward"],
         "shard_max_abs_err": max(r["forward_err"]
@@ -2037,7 +2369,8 @@ def main() -> None:
                              "onlysg": families["onlysg"]["backward"],
                              "exec": families["exec"]["backward"],
                              "dp": multi["dp"][1], "edge": multi["edge"][1],
-                             "edge_2x2": multi["edge_2x2"][1]},
+                             "edge_2x2": multi["edge_2x2"][1],
+                             "graphs_train": graphs["train"][1]},
         "max_abs_err": max(r["max_abs_err"] for r in backward.values()),
         "ladder_max_abs_err": ladder["backward"],
         "shard_max_abs_err": max(r["backward_err"]

@@ -26,6 +26,14 @@ execution engine with its bitmap loss and meters; LCGN draws its context
 features from a generator seeded with ``--seed`` + 2. ``--compile-cache``
 and ``--prng`` name JAX machinery and do nothing here.
 
+A single process on the card runs each train and eval step as the replay of
+a CUDA graph, one graph per batch shape (``train/graphs.py``), as the JAX
+CLI runs one jitted program per ladder rung: the first step at a shape runs
+eagerly, the second captures its graph. The graphs live in the process, so
+nothing persists across runs the way ``--compile-cache`` keeps JAX's
+programs; the CLI prints the warm-ups, captures and replays after each
+epoch and evaluation. Several ranks run their steps eagerly.
+
 Several GPUs: launch one process per rank with torchrun, and split the
 ranks into ``--data-parallel`` D x ``--edge-parallel`` K = WORLD_SIZE:
 
@@ -143,7 +151,8 @@ def get_args_parser():
                         "loss")
     p.add_argument("--compile-cache", default="", metavar="DIR",
                    help="JAX's persistent compilation cache; does nothing "
-                        "here")
+                        "here: a step is a CUDA graph replayed per batch "
+                        "shape, captured anew in each process")
     p.add_argument("--profile-dir", default="",
                    help="trace a few steps of the first epoch with "
                         "torch.profiler into DIR/trace.json")
@@ -288,6 +297,16 @@ def _launches():
     return gat_round.launches, gat_round_backward.launches
 
 
+def _print_graphs(what, step) -> None:
+    """The step's CUDA-graph calls so far (nothing for an eager step)."""
+    graphs = getattr(step, "graphs", None)
+    if graphs is not None:
+        print(f"step graphs ({what}): {len(graphs.graphs)} shapes, "
+              f"{graphs.warm_ups} warm-ups, {graphs.captures} captures "
+              f"({sum(graphs.capture_seconds.values()):.2f}s), "
+              f"{graphs.replays} replays")
+
+
 def _print_launches(what, before):
     now = _launches()
     print(f"kernel launches ({what}): gat_round {now[0] - before[0]}, "
@@ -399,8 +418,11 @@ def main(args):
     ctx_generator = torch.Generator(device=dev).manual_seed(
         data_seed(args.seed + 2, mesh))
     fast_validate = args.fast_validate or None
+    # one process replays CUDA graphs of its steps; several run them
+    # eagerly (their collectives go through gloo, which no graph can hold)
+    capture = mesh.size == 1
     eval_step = (make_edge_eval_step(model, cfg, mesh) if E > 1
-                 else make_eval_step(model, cfg))
+                 else make_eval_step(model, cfg, capture=capture))
     val_ds = GQADataset(programs_path(args.val_split),
                         scenes_path(args.val_split), text_vocab, sg_vocab)
 
@@ -433,6 +455,7 @@ def main(args):
                 generator=ctx_generator, mesh=mesh)
             print(split, res)
             _print_launches(f"evaluate {split}", before)
+            _print_graphs(f"evaluate {split}", eval_step)
         return
 
     train_ds = GQADataset(programs_path(args.split), scenes_path(args.split),
@@ -446,7 +469,8 @@ def main(args):
     K = max(args.steps_per_dispatch, 1)
     train_step = (make_dp_train_step(model, cfg, mesh, steps_per_dispatch=K)
                   if mesh.size > 1 else
-                  make_train_step(model, cfg, steps_per_dispatch=K))
+                  make_train_step(model, cfg, steps_per_dispatch=K,
+                                  capture=capture))
 
     def batches_fn(epoch):
         """This data rank's shard of the epoch, K batches per step."""
@@ -484,6 +508,7 @@ def main(args):
                        for k in collate_stats}
         print(f"collate layout stats (this epoch): {epoch_stats}")
         _print_launches(f"train epoch {epoch}", before)
+        _print_graphs(f"train epoch {epoch}", train_step)
         if (epoch + 1) % args.validate_every == 0:
             before = _launches()
             res = validate(eval_step, eval_batches(val_ds), cfg,
@@ -493,6 +518,7 @@ def main(args):
                            generator=ctx_generator, mesh=mesh)
             print(args.val_split, res)
             _print_launches(f"validate epoch {epoch}", before)
+            _print_graphs(f"validate epoch {epoch}", eval_step)
         if mesh.is_main:
             save_checkpoint(out_dir / "ckpt", state)
             print(f"checkpoint saved: {out_dir / 'ckpt'} (epoch {epoch})")

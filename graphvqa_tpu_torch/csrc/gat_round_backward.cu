@@ -89,6 +89,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSM = 2;
 constexpr int kChunkMin = 8;   // channels: the narrowest chunk of a big unit
 constexpr int kMaxDevices = 64;
+// occupancy entries kept per device, one per shared-memory size launched
+constexpr int kOccSlots = 32;
 
 __host__ __device__ constexpr size_t round16(size_t n) {
   return (n + 15) & ~(size_t)15;
@@ -980,9 +982,24 @@ int launch(Params p, cudaStream_t stream) {
   if (smem < L.fixed + least) return (int)cudaErrorInvalidValue;
   p.stage_bytes = (int)((smem - L.fixed) & ~(size_t)15);
   // per device: the dynamic shared memory this kernel is allowed, and how
-  // many of its blocks fit an SM at that size
-  static size_t allowed[kMaxDevices], occ_smem[kMaxDevices];
-  static int occ_blocks[kMaxDevices];
+  // many of its blocks fit an SM at each size it has launched with. Both
+  // are set on an eager launch: a launch under stream capture that would
+  // need either returns cudaErrorStreamCaptureUnsupported, so no attribute
+  // call or occupancy query happens inside a CUDA graph's capture.
+  static size_t allowed[kMaxDevices];
+  static size_t occ_smem[kMaxDevices][kOccSlots];
+  static int occ_blocks[kMaxDevices][kOccSlots];
+  static int occ_next[kMaxDevices];
+  int slot = -1;
+  for (int i = 0; i < kOccSlots; ++i)
+    if (occ_smem[dev][i] == smem) slot = i;
+  if (smem > allowed[dev] || slot < 0) {
+    cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
+    err = cudaStreamIsCapturing(stream, &capture);
+    if (err != cudaSuccess) return (int)err;
+    if (capture != cudaStreamCaptureStatusNone)
+      return (int)cudaErrorStreamCaptureUnsupported;
+  }
   if (smem > allowed[dev]) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -990,16 +1007,18 @@ int launch(Params p, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     allowed[dev] = smem;
   }
-  if (occ_smem[dev] != smem) {
+  if (slot < 0) {
     int blocks = 0;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
                                                         kThreads, smem);
     if (err != cudaSuccess) return (int)err;
-    occ_blocks[dev] = blocks > 0 ? blocks : 1;
-    occ_smem[dev] = smem;
+    slot = occ_next[dev];
+    occ_next[dev] = (slot + 1) % kOccSlots;
+    occ_blocks[dev][slot] = blocks > 0 ? blocks : 1;
+    occ_smem[dev][slot] = smem;
   }
   const int64_t units = (int64_t)p.B * p.H;
-  const int64_t slots = (int64_t)info.sms * occ_blocks[dev];
+  const int64_t slots = (int64_t)info.sms * occ_blocks[dev][slot];
   const int grid = (int)(units < slots ? units : slots);
   err = cudaMemsetAsync(p.next, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;

@@ -32,8 +32,8 @@ def _greedy_token(logits: torch.Tensor, pad_idx: int,
     before the argmax (``<unk>`` stays emittable)."""
     logits = logits.clone()
     neg = torch.finfo(logits.dtype).min
-    logits[..., pad_idx] = neg
-    logits[..., sos_idx] = neg
+    logits[..., pad_idx].fill_(neg)
+    logits[..., sos_idx].fill_(neg)
     return logits.argmax(dim=-1).to(torch.int32)
 
 

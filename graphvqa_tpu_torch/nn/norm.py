@@ -47,7 +47,7 @@ class MaskedBatchNorm(nn.Module):
         """(mean, var) of the real rows, and the running-stat update."""
         xf = x.float()
         if mask is None:
-            count = torch.tensor(float(x.shape[0]), device=x.device)
+            count = torch.full((), float(x.shape[0]), device=x.device)
             s1, s2 = xf.sum(dim=0), (xf * xf).sum(dim=0)
         else:
             m = mask.float()[:, None]

@@ -28,6 +28,15 @@ edge's logit equals the softmax shift (``minimum`` at a tie). Its blocks take
 same way; ``gat_round_backward.counter`` keeps the last launch's, which ends
 holding the number of units handed out.
 
+Both kernels launch on the current stream, so a CUDA graph can hold them
+(``train/graphs.py``). The libraries set a kernel's shared-memory attribute
+and query its occupancy on the first eager launch at each size; a launch
+that would need either while its stream captures raises instead. A replay
+runs no Python, so the step graphs add each graph's recorded launches to
+``gat_round.launches`` / ``gat_round_backward.launches``
+(:func:`add_launch_counts`) and set ``gat_round_backward.counter`` to the
+replayed graph's counter, which holds its count once the replay has run.
+
 The wrapper takes each graph's edges as the dense packing lays them out
 (``core/packing.py:pack_graphs_dense``): the real edges first, sorted by
 destination, the padded ones last. On the CPU it raises on any other order;
@@ -57,6 +66,9 @@ _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# cudaErrorStreamCaptureUnsupported: the libraries' answer to a launch that
+# would set a kernel attribute while its stream is capturing
+_CAPTURE_UNSUPPORTED = 900
 _SHIFTS = ("graph", "dst")
 
 
@@ -340,6 +352,11 @@ def _launch(fn, args, dev, what):
     else:
         with torch.cuda.device(index):
             err = fn(*args, stream)
+    if err == _CAPTURE_UNSUPPORTED:
+        raise RuntimeError(
+            f"{what} met new widths inside a CUDA graph capture: the kernel "
+            f"sets its shared-memory attribute on an eager launch, so run "
+            f"the step once eagerly at this batch shape before capturing it")
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
@@ -530,3 +547,16 @@ def gat_round(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value=None,
 
 
 gat_round.launches = 0
+
+
+def launch_counts() -> tuple:
+    """(``gat_round.launches``, ``gat_round_backward.launches``)."""
+    return gat_round.launches, gat_round_backward.launches
+
+
+def add_launch_counts(counts: tuple) -> None:
+    """Add (forward, backward) launches to the counters: a CUDA graph's
+    replay launches the kernels it captured without running this module's
+    code, so its replays count them here."""
+    gat_round.launches += counts[0]
+    gat_round_backward.launches += counts[1]

@@ -23,6 +23,12 @@ The JAX package stacks the data ranks' batches into one array, and so
 aligns their shapes first (``align_dense_group``); here every rank holds its
 own batch at its own shapes, so nothing is aligned (``core/packing.py:
 repack_dense`` is kept as the layout tool it calls).
+
+The step stays eager, with the edge-sharded one: its all-reduce (and the
+edge path's assemblies) go through gloo, which a CUDA graph cannot hold, so
+it calls ``forward_backward`` and ``apply_gradients`` directly and never
+``make_train_step``'s graphs. On cards of their own, NCCL's collectives
+could be captured (ROADMAP).
 """
 from __future__ import annotations
 

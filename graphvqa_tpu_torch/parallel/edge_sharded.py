@@ -173,8 +173,10 @@ def make_edge_eval_step(model: PipelineModel, cfg: Config,
                         mesh: Mesh) -> Callable:
     """Greedy-decode evaluation with the edges sharded as in training:
     make_eval_step's step (same signature and outputs, which come out alike
-    on every edge rank) on batches from :func:`prepare_edge_eval_batch`."""
-    step = make_eval_step(model, cfg)
+    on every edge rank) on batches from :func:`prepare_edge_eval_batch`.
+    It stays eager: its assemblies are collectives through gloo, which a
+    CUDA graph cannot hold."""
+    step = make_eval_step(model, cfg, capture=False)
 
     def edge_eval_step(batch: QABatch, generator=None):
         if mesh.edge > 1 and batch.graphs.edge_group is None:

@@ -11,6 +11,16 @@ device. With
 order, reporting their metrics reduced as the JAX package's ``lax.scan``
 dispatch does (counts summed, losses meaned, the last lr); the K steps are
 exactly K single calls.
+
+On the card both steps replay one CUDA graph per batch shape
+(``train/graphs.py``), as the JAX package jits one program per ladder rung:
+the first call at a shape is an eager warm-up, the second captures and
+replays, later ones replay. A replay computes what the eager step computes
+from the same state and generators. ``capture=False`` keeps the eager step;
+on the CPU the step is eager. K steps per call are K replays of the one-step
+graph: a replay is one host call already, and a K-step graph would be a
+second graph per shape holding K static batches for no fewer launches on
+the card.
 ``make_eval_step(model, cfg)`` returns ``eval_step(batch, generator=None)``:
 one request is one :class:`QABatch` on the model's device; the answer is the
 per-row signals of the JAX step (``vectors``, with ``execution_bitmap``
@@ -37,6 +47,7 @@ from graphvqa_tpu_torch.config import Config
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.models.pipeline import PipelineModel
 from graphvqa_tpu_torch.nn.execution import bitmap_precision_recall
+from graphvqa_tpu_torch.train.graphs import StepGraphs
 from graphvqa_tpu_torch.train.logging_utils import (
     AverageMeter, ProgressMeter, synchronize_meters)
 from graphvqa_tpu_torch.train.losses import total_loss
@@ -123,37 +134,68 @@ def multi_step(train_step: Callable, steps_per_dispatch: int) -> Callable:
     return run
 
 
+def _graphs(model: torch.nn.Module, capture: bool,
+            capture_fn: Optional[Callable]) -> Optional[StepGraphs]:
+    """The step's graphs when it replays them: with ``capture`` on the card
+    (a model on the CPU runs eagerly), or wherever a test injects
+    ``capture_fn``."""
+    on_card = next(model.parameters()).device.type == "cuda"
+    if capture and (on_card or capture_fn is not None):
+        return StepGraphs(capture_fn)
+    return None
+
+
 def make_train_step(model: PipelineModel, cfg: Config,
-                    steps_per_dispatch: int = 1) -> Callable:
+                    steps_per_dispatch: int = 1, capture: bool = True,
+                    capture_fn: Optional[Callable] = None) -> Callable:
     """One optimizer step per call, or K = ``steps_per_dispatch`` steps over
     a list of K batches. The state is updated in place (the parameters,
-    moments and running statistics are large) and returned."""
+    moments and running statistics are large) and returned. On the card each
+    step replays its batch shape's CUDA graph (module doc; ``capture=False``
+    keeps the eager step, the graphs are ``train_step.graphs``)."""
+
+    def body(state: TrainState, batch: QABatch, generator, ctx_generator):
+        metrics = forward_backward(model, cfg, batch, generator,
+                                   ctx_generator)
+        state.update({n: p.grad for n, p in model.named_parameters()})
+        return metrics
+
+    graphs = _graphs(model, capture, capture_fn)
 
     def train_step(state: TrainState, batch: QABatch,
                    generator: torch.Generator,
                    ctx_generator: Optional[torch.Generator] = None):
         lr = state.current_lr()
-        metrics = forward_backward(model, cfg, batch, generator,
-                                   ctx_generator)
-        state.apply_gradients({n: p.grad for n, p in model.named_parameters()})
+        state.prepare()
+        if graphs is None:
+            metrics = body(state, batch, generator, ctx_generator)
+        else:
+            metrics = graphs(
+                lambda b: body(state, b, generator, ctx_generator), batch,
+                (generator, ctx_generator),
+                bind=(state, state.opt_state, state.opt_state["count"],
+                      state.lr_tensor))
+        state.step += 1
         metrics["lr"] = lr
         return state, metrics
 
+    train_step.graphs = graphs
     if steps_per_dispatch <= 1:
         return train_step
-    return multi_step(train_step, steps_per_dispatch)
+    run = multi_step(train_step, steps_per_dispatch)
+    run.graphs = graphs
+    return run
 
 
-def make_eval_step(model: PipelineModel, cfg: Config) -> Callable:
+def make_eval_step(model: PipelineModel, cfg: Config, capture: bool = True,
+                   capture_fn: Optional[Callable] = None) -> Callable:
+    """The greedy-decode step (module doc). On the card each request
+    replays its batch shape's CUDA graph; ``capture=False`` keeps the eager
+    step (the graphs are ``eval_step.graphs``)."""
     pad = cfg.model.text.pad_idx
     steps = cfg.model.max_execution_steps
 
-    @torch.inference_mode()
-    def eval_step(batch: QABatch,
-                  generator: Optional[torch.Generator] = None):
-        """Greedy-decode validation -> (vectors, program_tokens,
-        node_attention); rows are kept per sample so the caller can mask a
-        ragged final batch. ``generator`` draws LCGN's context features."""
+    def body(batch: QABatch, generator: Optional[torch.Generator]):
         out = model.sample(_teacher_inputs(batch), ctx_generator=generator)
         # sampled buffer vs the full target including <start>
         match, group_match, empty = program_match_vectors(
@@ -167,6 +209,19 @@ def make_eval_step(model: PipelineModel, cfg: Config) -> Callable:
             vectors["execution_bitmap"] = out.execution_bitmap
         return vectors, out.program_tokens, out.node_attention
 
+    graphs = _graphs(model, capture, capture_fn)
+
+    @torch.inference_mode()
+    def eval_step(batch: QABatch,
+                  generator: Optional[torch.Generator] = None):
+        """Greedy-decode validation -> (vectors, program_tokens,
+        node_attention); rows are kept per sample so the caller can mask a
+        ragged final batch. ``generator`` draws LCGN's context features."""
+        if graphs is None:
+            return body(batch, generator)
+        return graphs(lambda b: body(b, generator), batch, (generator,))
+
+    eval_step.graphs = graphs
     return eval_step
 
 
@@ -179,8 +234,11 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
                     ) -> TrainState:
     """Run ``train_step`` over ``batches`` ((meta, batch) pairs), printing
     the loss, the accuracies and the throughput every ``print_freq`` steps.
-    The metric dicts stay on the device until a print boundary, so the host
-    does not wait for each step. ``profile_dir`` traces steps
+    Each step's metrics are copied at once into a row of their own on the
+    device (a step may hand back tensors that its next call overwrites, as
+    a CUDA graph's outputs are) and stay there until a print boundary, which
+    reads all the rows in one copy, so the host does not wait for each
+    step. ``profile_dir`` traces steps
     [profile_steps) with torch.profiler (host and, on a GPU, the device)
     into ``profile_dir/trace.json``, a Chrome trace."""
     losses = AverageMeter("Loss", ":.4e")
@@ -196,9 +254,16 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
     def rate(correct, total):
         return 100.0 * float(correct) / max(int(total), 1)
 
+    def keep(m):
+        """This step's meter inputs as one float64 row of its own (exact
+        for the float32 losses and the counts)."""
+        pending.append(torch.stack([m[k].to(torch.float64)
+                                    for k in _METER_KEYS]))
+
     def drain():
-        for m in pending:
-            m = {k: float(v) for k, v in m.items()}
+        rows = torch.stack(pending).tolist() if pending else []
+        for row in rows:
+            m = dict(zip(_METER_KEYS, row))
             bsz = int(m["short_answer_total"])
             tput.update(bsz, int(m["edge_count"]))
             losses.update(m["total"], bsz)
@@ -236,7 +301,7 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
                 _stop_profiler(profiler, profile_dir)
                 profiler = None
         state, m = train_step(state, batch, generator, ctx_generator)
-        pending.append(m)
+        keep(m)
         if i % print_freq == 0:
             drain()
             progress.display(i)
@@ -249,6 +314,13 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
     print(f"  epoch sustained: {tput.summary()}, data-wait {wait_pct():.1f}%"
           f" ({time.perf_counter() - epoch_t0:.1f}s wall)")
     return state
+
+
+# the metrics train_one_epoch's meters read
+_METER_KEYS = ("total", "short_answer_correct", "short_answer_total",
+               "program_correct", "program_total", "program_group_correct",
+               "program_group_total", "program_nonempty_correct",
+               "program_nonempty_total", "edge_count")
 
 
 def _start_profiler():

@@ -9,12 +9,18 @@ from typing import Tuple
 import torch
 
 
+def _count(n: int, device) -> torch.Tensor:
+    """A static count as an int64 scalar made on ``device`` (a fill, not a
+    copy from the host, so a CUDA graph can hold it)."""
+    return torch.full((), n, dtype=torch.long, device=device)
+
+
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, k: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, C] logits vs [B] labels -> (num_correct, batch)."""
     topi = logits.topk(k, dim=-1).indices
     correct = (topi == labels.long()[:, None]).any(dim=-1)
-    return correct.sum(), torch.tensor(labels.shape[0], device=labels.device)
+    return correct.sum(), _count(labels.shape[0], labels.device)
 
 
 def _sequence_match(predictions, target, padding_idx: int) -> torch.Tensor:
@@ -26,7 +32,7 @@ def _sequence_match(predictions, target, padding_idx: int) -> torch.Tensor:
 def string_exact_match_acc(predictions, target, padding_idx: int = 1
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     match = _sequence_match(predictions, target, padding_idx)
-    return match.sum(), torch.tensor(target.shape[0], device=target.device)
+    return match.sum(), _count(target.shape[0], target.device)
 
 
 def program_match_vectors(predictions, target, padding_idx: int = 1,
@@ -49,8 +55,8 @@ def program_string_exact_match_acc(predictions, target, padding_idx: int = 1,
     total = target.shape[0]
     dev = target.device
     n_empty = empty.sum()
-    return ((match.sum(), torch.tensor(total, device=dev)),
-            (group_match.sum(), torch.tensor(total // group_size, device=dev)),
+    return ((match.sum(), _count(total, dev)),
+            (group_match.sum(), _count(total // group_size, dev)),
             (match.sum() - n_empty, total - n_empty))
 
 

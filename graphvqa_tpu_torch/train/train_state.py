@@ -10,6 +10,15 @@ stepped per epoch). Every parameter steps, including those that got no
 gradient (a zero gradient, as JAX gives them): ``torch.optim.Adam`` would
 skip those and apply L2 rather than decoupled decay. Parameters and moments
 are float32 and update in place.
+
+The update reads nothing back to the host, so a CUDA graph can hold it:
+Adam's count is an int32 scalar on the parameters' device, the bias
+corrections ``1 - b**count`` are computed there in float32 (as optax
+computes them), and the learning rate is a float32 scalar there too, which
+:meth:`TrainState.prepare` refills (``fill_``, outside any graph) when the
+epoch has moved. :meth:`TrainState.update` is the device part of a step;
+:meth:`TrainState.apply_gradients` is ``prepare``, ``update`` and the host's
+step count.
 """
 from __future__ import annotations
 
@@ -41,6 +50,10 @@ class TrainState:
     lr_gamma: float = 0.1
     weight_decay: float = 0.0
     clip_grad: float = 0.0
+    # the learning rate on the device, and the epoch it was filled for
+    lr_tensor: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                          repr=False)
+    lr_epoch: Optional[int] = dataclasses.field(default=None, repr=False)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -56,11 +69,30 @@ class TrainState:
     def current_lr(self) -> float:
         return step_lr(self.base_lr, self.lr_drop, self.lr_gamma, self.epoch)
 
+    def prepare(self) -> "TrainState":
+        """The host's part before a step, never inside a CUDA graph: Adam's
+        count as an int32 tensor on the parameters' device (checkpoints
+        written before it moved there hold a Python int) and the device
+        learning rate refilled when the epoch has moved since it was last
+        filled."""
+        dev = next(self.model.parameters()).device
+        if not isinstance(self.opt_state["count"], torch.Tensor):
+            self.opt_state["count"] = torch.tensor(
+                self.opt_state["count"], dtype=torch.int32, device=dev)
+        if self.lr_tensor is None:
+            self.lr_tensor = torch.empty((), dtype=torch.float32,
+                                         device=dev)
+        if self.lr_epoch != self.epoch:
+            self.lr_tensor.fill_(self.current_lr())
+            self.lr_epoch = self.epoch
+        return self
+
     @torch.no_grad()
-    def apply_gradients(self, grads: Dict[str, Optional[torch.Tensor]]
-                        ) -> "TrainState":
+    def update(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
         """One optimizer step from ``grads`` (parameter name -> gradient or
-        None for zero), in place; returns ``self``."""
+        None for zero), in place and on the device only: no value comes
+        back to the host and no host value is baked in but the constants.
+        Needs :meth:`prepare` first."""
         names, params = zip(*self.model.named_parameters())
         gs = [torch.zeros_like(p) if grads.get(n) is None else grads[n]
               for n, p in zip(names, params)]
@@ -76,20 +108,29 @@ class TrainState:
         torch._foreach_add_(mu, gs, alpha=1.0 - B1)
         torch._foreach_mul_(nu, B2)
         torch._foreach_addcmul_(nu, gs, gs, value=1.0 - B2)
-        count = int(self.opt_state["count"]) + 1
-        self.opt_state["count"] = count
-        mu_hat = torch._foreach_div(mu, 1.0 - B1 ** count)
-        denom = torch._foreach_div(nu, 1.0 - B2 ** count)
+        count = self.opt_state["count"]
+        count.add_(1)
+        exponent = count.float()
+        mu_hat = torch._foreach_div(mu, 1.0 - torch.pow(B1, exponent))
+        denom = torch._foreach_div(nu, 1.0 - torch.pow(B2, exponent))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, ADAM_EPS)
         update = torch._foreach_div(mu_hat, denom)
         if self.weight_decay:
             torch._foreach_add_(update, list(params), alpha=self.weight_decay)
-        torch._foreach_add_(list(params), update, alpha=-self.current_lr())
+        torch._foreach_mul_(update, self.lr_tensor)
+        torch._foreach_sub_(list(params), update)
+
+    def apply_gradients(self, grads: Dict[str, Optional[torch.Tensor]]
+                        ) -> "TrainState":
+        """One optimizer step from ``grads`` in place; returns ``self``."""
+        self.prepare().update(grads)
         self.step += 1
         return self
 
     def next_epoch(self) -> "TrainState":
+        """The next epoch; the device learning rate follows at the next
+        :meth:`prepare`."""
         self.epoch += 1
         return self
 
@@ -99,8 +140,9 @@ def create_train_state(model: nn.Module, lr: float = 1e-4, lr_drop: int = 90,
                        clip_grad: float = 0.0) -> TrainState:
     """A fresh state around ``model``: zero moments beside each parameter,
     step and epoch 0."""
+    dev = next(model.parameters()).device
     opt_state = {
-        "count": 0,
+        "count": torch.zeros((), dtype=torch.int32, device=dev),
         "mu": {n: torch.zeros_like(p) for n, p in model.named_parameters()},
         "nu": {n: torch.zeros_like(p) for n, p in model.named_parameters()}}
     return TrainState(model=model, opt_state=opt_state, base_lr=lr,

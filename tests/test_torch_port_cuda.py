@@ -786,3 +786,61 @@ def test_edge_sharded_step_two_ranks_share_the_card(tmp_path):
         ok = g.abs() > 1e-5
         torch.testing.assert_close(r0["params"][n][ok], params[n][ok],
                                    rtol=0, atol=1e-6, msg=n)
+
+
+def test_captured_steps_equal_the_eager_ones():
+    """Three train steps with dropout on, replayed as a CUDA graph (eager
+    warm-up, capture, replay) against the eager step from the same weights
+    and generator seed, under deterministic algorithms: every loss, every
+    parameter and running statistic bit for bit, and both kernels counted
+    once per round in every step, replays included; then the eval step's
+    replay against the eager one, bit for bit."""
+    import dataclasses
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = _device()
+    cfg, b0 = tiny_train_case(seed=0)
+    _, b1 = tiny_train_case(seed=1)
+    mc = cfg.model
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        mc, classifier_dropout=0.2,
+        transformer=dataclasses.replace(mc.transformer, dropout=0.1),
+        engine=dataclasses.replace(mc.engine, dropout=0.1)))
+    batches = [b.to(dev) for b in (b0, b1, b0)]
+    rounds = cfg.model.engine.num_rounds
+    runs = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for capture in (True, False):
+            model = build_model(cfg.model, device=dev, seed=3)
+            state = create_train_state(model, lr=1e-3)
+            step = make_train_step(model, cfg, capture=capture)
+            gen = torch.Generator(device=dev).manual_seed(4)
+            losses = []
+            for batch in batches:
+                f0, g0 = gat_round.launches, gat_round_backward.launches
+                state, m = step(state, batch, gen)
+                losses.append(float(m["total"]))
+                assert (gat_round.launches - f0,
+                        gat_round_backward.launches - g0) == (rounds, rounds)
+            runs.append((losses, {n: t.detach().clone()
+                                  for n, t in model.state_dict().items()},
+                         step.graphs))
+        (cap_losses, cap_sd, graphs), (eager_losses, eager_sd, none) = runs
+        assert none is None
+        assert (graphs.warm_ups, graphs.captures, graphs.replays) == (1, 1, 2)
+        assert cap_losses == eager_losses
+        for n, t in eager_sd.items():
+            assert torch.equal(cap_sd[n], t), n
+        eval_cap = make_eval_step(model, cfg)
+        eval_eager = make_eval_step(model, cfg, capture=False)
+        for batch in batches:
+            got = eval_cap(batch)
+        want = eval_eager(batches[-1])
+        assert eval_cap.graphs.replays == 2
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        for k, v in want[0].items():
+            assert torch.equal(got[0][k], v), k
+    finally:
+        torch.use_deterministic_algorithms(False)
