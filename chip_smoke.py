@@ -23,15 +23,22 @@ Phases, in order; any failure exits non-zero:
               random BatchNorm statistics, bf16) on B=8, card against CPU
   5. serve    make_eval_step on 3 requests of B=512 at full width, each the
               replay of the step's CUDA graph (after the eager warm-up and
-              the capture); the kernel must run exactly 5 times per request;
-              ms per step and QA/s, capture seconds, peak memory
+              the capture); the kernel must run exactly 5 times per request
+              (each launch counts itself on the card); ms per step and QA/s,
+              capture seconds, peak memory; then two more replays, each
+              against the eager step on its request (phase 4's limits)
   6. profile  where one more request's time goes: stage times on the host
               clock, the device's busy share and its heaviest kernels
   7. train    make_train_step at full width on B=512: the eager warm-up,
               the capture and 5 counted replays; both kernels must run
-              exactly 5 times per step (counted under replay);
+              exactly 5 times per step (counted on the card under replay);
               ms per step, QA/s, the loss of each step, then one profiled
-              step: device busy share and heaviest kernels
+              step: device busy share and heaviest kernels; then two
+              replays, each against the eager step from the same state and
+              generators (rewound in place): the loss within phase 8's
+              limit, the gradient and parameter differences printed beside
+              those of a second eager run (the eager step's own backward
+              differs from run to run: atomic sums)
   8. train-parity  one float32 train step of the full-width model on B=8,
               card against CPU: loss, every gradient, updated parameters
               and BatchNorm running statistics (a ReLU input whose sign
@@ -62,10 +69,12 @@ Phases, in order; any failure exits non-zero:
               with the execution engine (and its bitmap loss). Each: card
               against CPU on B=8 in bf16 (logits, and the bitmap, as phase
               4 holds them) and in one f32 train step (phase 8's limits);
-              make_eval_step on 1 warm-up + 3 requests and make_train_step
-              on 1 warm-up + 3 steps at B=512 (ms per step, QA/s, each
-              step's loss, peak memory, one profiled step's busy share and
-              heaviest five kernels); the GAT kernels must run 5 (eval) and
+              make_eval_step and make_train_step at B=512 as phases 5 and 7
+              run them, 3 counted calls each, with the same replays held
+              against the eager step (phase 12's limits for eval; LCGN's
+              context generator rewound with the state) (ms per step, QA/s,
+              each step's loss, peak memory, one profiled step's busy share
+              and heaviest five kernels); the GAT kernels must run 5 (eval) and
               5 + 5 (train) times per step on onlysg and exec, never on gcn,
               gine and lcgn. LCGN's context features come from a seeded
               generator on the card, and from one fixed draw on both sides
@@ -95,20 +104,26 @@ Phases, in order; any failure exits non-zero:
               equal, --resume --evaluate on the card. Several ranks on one
               card measure the port's overheads, not scaling; their steps
               run eagerly (gloo's collectives cannot be captured)
- 14. graphs   the steps as CUDA graphs at full width, B=512: three f32
-              train steps with dropout, captured (warm-up, capture, replay)
-              against eager from the same weights and generator seed under
+ 14. graphs   the steps as CUDA graphs at full width, B=512: per family
+              (gat and phase 12's), three f32 train steps with dropout (and
+              LCGN's context draws), captured (warm-up, capture, replay)
+              against eager from the same weights and generator seeds under
               deterministic algorithms (losses, parameters, gradients and
               running statistics bitwise, or else phase 8's limits, with
-              the largest difference printed); a bf16 eval request captured
-              against eager (greedy tokens, top logit, attention bitwise);
-              ms per step captured and eager for bf16 eval and train, each
-              one's profiled device busy time, kernels and host launch
-              calls; GAT launches per step counted under replay (5 eval,
-              5 + 5 train); a batch at the smallest bumped rung of phase 9's
-              data captures a second train and eval graph, after which the
-              main rung replays without a capture; capture seconds per rung
-              and peak memory with the graphs cached
+              the largest difference printed); the main rung and the
+              smallest bumped rung of phase 9's data interleaved in bf16
+              (main, main, bumped, bumped, main, bumped, main: a train step
+              and an eval request each), captured against eager from one
+              rewound state under deterministic algorithms, bitwise; then
+              the graphs the port runs: ms per step captured and eager for
+              bf16 eval and train, each one's profiled device busy time,
+              kernels and host launch calls; GAT launches per step counted
+              on the card under replay (5 eval, 5 + 5 train); the bumped
+              rung captures a second train and eval graph, after which the
+              main rung replays without a capture, each replay held against
+              the eager step between the bumped rung's replays (as phases 5
+              and 7 hold them); capture seconds per rung and peak memory
+              with the graphs cached
 
 Each phase's seconds print as "[seconds] phase N".
 
@@ -630,12 +645,15 @@ def gat_rounds(cfg):
     return e.num_rounds if e.kind in ("gat", "none") else 0
 
 
-def phase_serve(cfg, dev, model, tag="serve", ctx=None):
+def phase_serve(cfg, dev, model, tag="serve", ctx=None, relative=False):
     """make_eval_step, a CUDA graph replayed per request, on 3 counted
     B=512 requests after the eager warm-up and the capture (counts set to 0
-    just before them and read just after); ``ctx`` is LCGN's generator."""
+    just before them and read just after), then two more replays held
+    against the eager step (hold_eval_replays; ``relative`` as phase 12
+    scales the limit); ``ctx`` is LCGN's generator."""
     import torch
-    from graphvqa_tpu_torch.ops.gat_round import gat_round
+    from graphvqa_tpu_torch.ops.gat_round import (
+        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.train.loop import make_eval_step
     step = make_eval_step(model, cfg)
     requests = [qa_batch(cfg, B, seed=100 + i).to(dev) for i in range(4)]
@@ -646,7 +664,7 @@ def phase_serve(cfg, dev, model, tag="serve", ctx=None):
     if (step.graphs.captures, step.graphs.replays) != (1, 1):
         fail(f"{tag}: the eval step captured {step.graphs.captures} graphs "
              f"and replayed {step.graphs.replays} in its first two requests")
-    gat_round.launches = 0
+    reset_launch_counts()
     times, outs = [], []
     for req in requests[1:]:
         t0 = time.perf_counter()
@@ -654,7 +672,7 @@ def phase_serve(cfg, dev, model, tag="serve", ctx=None):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         outs.append(out)
-    launches = gat_round.launches
+    launches = launch_counts()[0]
     if launches != gat_rounds(cfg) * len(times):
         fail(f"{tag}: gat_round launched {launches} times in {len(times)} "
              f"requests, expected {gat_rounds(cfg)} per request")
@@ -682,6 +700,9 @@ def phase_serve(cfg, dev, model, tag="serve", ctx=None):
         f" QA/s {B / statistics.mean(times):.1f}, gat_round launches "
         f"{launches}, capture {sum(step.graphs.capture_seconds.values()):.2f}s"
         f", peak memory {peak_gib(dev)}")
+    held = hold_eval_replays(cfg, model, step, requests[1:3], ctx, tag,
+                             relative)
+    log(f"[{tag}] replays against the eager step: {held}")
     return launches, step, requests[-1]
 
 
@@ -771,10 +792,12 @@ def profiled_step(fn, tag, top):
 def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
     """The full-width train step on B=512, a CUDA graph replayed per step:
     the eager warm-up, the capture and ``steps`` counted steps (counts set
-    to 0 just before them and read just after), then one profiled step.
-    ``ctx`` is LCGN's generator."""
+    to 0 just before them and read just after), one profiled step, then
+    two replays on other batches held against the eager step
+    (hold_train_replays). ``ctx`` is LCGN's generator."""
     import torch
-    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.ops.gat_round import (
+        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.train.loop import make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
     tc = cfg.train
@@ -794,7 +817,7 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
     if (step.graphs.captures, step.graphs.replays) != (1, 1):
         fail(f"{tag}: the train step captured {step.graphs.captures} graphs "
              f"and replayed {step.graphs.replays} in its first two steps")
-    gat_round.launches = gat_round_backward.launches = 0
+    reset_launch_counts()
     times, losses = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -802,7 +825,7 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["total"]))
-    fwd, bwd = gat_round.launches, gat_round_backward.launches
+    fwd, bwd = launch_counts()
     rounds = gat_rounds(cfg)
     if (fwd, bwd) != (rounds * len(times), rounds * len(times)):
         fail(f"{tag}: gat_round {fwd} and gat_round_backward {bwd} launches "
@@ -824,6 +847,10 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
         f"gat_round_backward {bwd // len(times)}; peak memory "
         f"{peak_gib(dev)}")
     profiled_step(lambda: step(state, batch, gen, ctx), tag, top)
+    held = hold_train_replays(
+        cfg, state, step, [qa_batch(cfg, B, seed=201 + i).to(dev)
+                           for i in range(2)], gen, ctx, tag)
+    log(f"[{tag}] replays against the eager step: {held}")
     return fwd, bwd
 
 
@@ -1286,7 +1313,7 @@ def phase_flat(cfg, dev, data):
     import torch
     from graphvqa_tpu_torch.data import GQADataset, build_scene_graph_vocab
     from graphvqa_tpu_torch.data.vocab import Vocab
-    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.ops.gat_round import launch_counts
     from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
     root = data["data"]
@@ -1308,13 +1335,13 @@ def phase_flat(cfg, dev, data):
     outs = {}
     for device in ("cpu", dev):
         model = full_model(fcfg, device)
-        f0 = gat_round.launches
+        f0 = launch_counts()
         vectors, tokens, attention = make_eval_step(model, fcfg)(
             batch.to(device))
         outs[str(device)] = model.sample(batch.to(device)).short_answer_logits \
             .float().cpu()
         if device != "cpu":
-            if gat_round.launches != f0:
+            if launch_counts() != f0:
                 fail("the flat batch launched the GAT kernel")
             gen = torch.Generator(device=device).manual_seed(0)
             _, m = make_train_step(model, fcfg)(create_train_state(model),
@@ -1379,7 +1406,8 @@ def phase_families(dev, data):
         phase_train_parity(dev, cfg, tag=tag)
         model = full_model(cfg, dev)
         ctx = torch.Generator(device=dev).manual_seed(2)
-        serve, _, _ = phase_serve(cfg, dev, model, tag=tag, ctx=ctx)
+        serve, _, _ = phase_serve(cfg, dev, model, tag=tag, ctx=ctx,
+                                  relative=True)
         fwd, bwd = phase_train(cfg, dev, model, steps=3, tag=tag, ctx=ctx,
                                top=5)
         launches[name] = dict(forward=serve + fwd, backward=bwd)
@@ -1473,63 +1501,300 @@ def _outputs_diff(a, b):
 
 
 def graphs_train_parity(dev, tag):
-    """Three float32 train steps with dropout on, B=512 at full width,
-    captured (warm-up, capture, replay) against eager, from the same weights
-    and generator seed, under deterministic algorithms: the loss of each
-    step, then every parameter, gradient and running statistic after the
-    third, bitwise, or else within phase 8's limits."""
+    """Per family (gat and FAMILIES): three float32 train steps with
+    dropout on, B=512 at full width, captured (warm-up, capture, replay)
+    against eager, from the same weights and generator seeds (LCGN's
+    context generator too), under deterministic algorithms: the loss of
+    each step, then every parameter, gradient and running statistic after
+    the third, bitwise, or else within phase 8's limits. -> {family:
+    dict(bitwise, max_diff)}"""
     import dataclasses
     import torch
-    from graphvqa_tpu_torch.config import gat_config
     from graphvqa_tpu_torch.train.loop import make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
-    base = gat_config()
-    cfg = dataclasses.replace(base, model=dataclasses.replace(
-        base.model, dtype="float32"))
-    batches = [qa_batch(cfg, B, seed=300 + i).to(dev) for i in range(3)]
+    out = {}
+    for name in ("gat",) + FAMILIES:
+        base = family_config(name)
+        cfg = dataclasses.replace(base, model=dataclasses.replace(
+            base.model, dtype="float32"))
+        lcgn = cfg.model.engine.kind == "lcgn"
+        batches = [qa_batch(cfg, B, seed=300 + i).to(dev) for i in range(3)]
+        runs = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for mode in ("captured", "eager"):
+                model = full_model(cfg, dev)
+                state = create_train_state(
+                    model, lr=cfg.train.lr,
+                    weight_decay=cfg.train.weight_decay)
+                step = make_train_step(model, cfg,
+                                       capture=mode == "captured")
+                gen = torch.Generator(device=dev).manual_seed(5)
+                ctx = (torch.Generator(device=dev).manual_seed(6) if lcgn
+                       else None)
+                losses = []
+                for batch in batches:
+                    state, m = step(state, batch, gen, ctx)
+                    losses.append(float(m["total"]))
+                torch.cuda.synchronize()
+                runs[mode] = dict(step_record(model, state, m),
+                                  losses=losses)
+                if mode == "captured" and (
+                        step.graphs.warm_ups, step.graphs.captures,
+                        step.graphs.replays) != (1, 1, 2):
+                    fail(f"{tag} {name}: the f32 steps ran "
+                         f"{step.graphs.warm_ups} warm-ups, "
+                         f"{step.graphs.captures} captures and "
+                         f"{step.graphs.replays} replays, not 1, 1, 2")
+                del model, state, step
+                torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        cap, eag = runs["captured"], runs["eager"]
+        keys = ("params", "grads", "stats")
+        equal, diff = _outputs_diff([cap[k] for k in keys],
+                                    [eag[k] for k in keys])
+        equal = equal and cap["losses"] == eag["losses"]
+        if not equal:
+            held = hold_train_step(eag, cap, f"{tag} {name}", "captured",
+                                   "eager")
+            for i, (a, b) in enumerate(zip(cap["losses"], eag["losses"])):
+                if abs(a - b) > TRAIN_LOSS_RTOL * abs(b):
+                    fail(f"{tag} {name}: f32 step {i}: captured loss {a} "
+                         f"eager {b}")
+        log(f"[{tag}] {name} f32 train, 3 steps with dropout "
+            f"{cfg.model.transformer.dropout}/{cfg.model.engine.dropout}/"
+            f"{cfg.model.classifier_dropout}"
+            + (" and LCGN's context draws" if lcgn else "")
+            + f", captured (warm-up, capture, replay) against eager: losses "
+            f"{cap['losses']} / {eag['losses']}; "
+            + ("parameters, gradients and running statistics bitwise equal"
+               if equal else f"not bitwise (largest difference "
+               f"{diff:.3e}); phase 8's limits: {held}"))
+        out[name] = dict(bitwise=equal, max_diff=diff)
+    return out
+
+
+def graphs_rungs_parity(cfg, dev, model, batches, tag):
+    """The main rung and a bumped one interleaved, bf16 at full width under
+    deterministic algorithms: a train step then an eval request on each of
+    ``batches`` ((rung, batch) pairs), captured against eager from the same
+    state and generator (rewound in place). The captured run warms up and
+    captures each rung's graphs once, then replays the rungs out of their
+    capture order, every graph in the one pool: each step's loss and eval
+    outputs, then every parameter, gradient and running statistic, bitwise.
+    -> the captured run's (warm-ups, captures, replays) of the train step"""
+    import torch
+    from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    state = create_train_state(model, lr=cfg.train.lr,
+                               weight_decay=cfg.train.weight_decay)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rewind = rewind_point(state, (gen,))
     runs = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for mode in ("captured", "eager"):
-            model = full_model(cfg, dev)
-            state = create_train_state(model, lr=cfg.train.lr,
-                                       weight_decay=cfg.train.weight_decay)
-            step = make_train_step(model, cfg, capture=mode == "captured")
-            gen = torch.Generator(device=dev).manual_seed(5)
-            losses = []
-            for batch in batches:
-                state, m = step(state, batch, gen)
+        for capture in (True, False):
+            rewind()
+            train = make_train_step(model, cfg, capture=capture)
+            evaluate = make_eval_step(model, cfg, capture=capture)
+            losses, answers = [], []
+            for _, batch in batches:
+                _, m = train(state, batch, gen)
                 losses.append(float(m["total"]))
-            torch.cuda.synchronize()
-            runs[mode] = dict(step_record(model, state, m), losses=losses)
-            if mode == "captured" and (
-                    step.graphs.warm_ups, step.graphs.captures,
-                    step.graphs.replays) != (1, 1, 2):
-                fail(f"{tag}: the f32 steps ran {step.graphs.warm_ups} "
-                     f"warm-ups, {step.graphs.captures} captures and "
-                     f"{step.graphs.replays} replays, not 1, 1, 2")
-            del model, state, step
-            torch.cuda.empty_cache()
+                answers.append([t.cpu() for t in _flat(evaluate(batch))])
+            rec = step_record(model, state, m)
+            runs[capture] = dict(rec, losses=losses, answers=answers)
+            if capture:
+                calls = (train.graphs.warm_ups, train.graphs.captures,
+                         train.graphs.replays)
+                if (evaluate.graphs.warm_ups, evaluate.graphs.captures,
+                        evaluate.graphs.replays) != calls:
+                    fail(f"{tag}: the eval step's graph calls differ from "
+                         f"the train step's {calls}")
+            del train, evaluate
     finally:
         torch.use_deterministic_algorithms(False)
-    cap, eag = runs["captured"], runs["eager"]
+    cap, eag = runs[True], runs[False]
+    rungs = " ".join(str(r) for r, _ in batches)
+    for i, (a, b) in enumerate(zip(cap["answers"], eag["answers"])):
+        if not _outputs_diff(a, b)[0]:
+            fail(f"{tag}: step {i} ({batches[i][0]}): the captured eval "
+                 f"request differs from the eager one")
     keys = ("params", "grads", "stats")
     equal, diff = _outputs_diff([cap[k] for k in keys],
                                 [eag[k] for k in keys])
-    equal = equal and cap["losses"] == eag["losses"]
-    if not equal:
-        held = hold_train_step(eag, cap, tag, "captured", "eager")
-        for i, (a, b) in enumerate(zip(cap["losses"], eag["losses"])):
-            if abs(a - b) > TRAIN_LOSS_RTOL * abs(b):
-                fail(f"{tag}: f32 step {i}: captured loss {a} eager {b}")
-    log(f"[{tag}] f32 train, 3 steps with dropout "
-        f"{cfg.model.transformer.dropout}/{cfg.model.engine.dropout}/"
-        f"{cfg.model.classifier_dropout}, captured (warm-up, capture, "
-        f"replay) against eager: losses {cap['losses']} / {eag['losses']}; "
-        + ("parameters, gradients and running statistics bitwise equal"
-           if equal else f"not bitwise (largest difference {diff:.3e}); "
-           f"phase 8's limits: {held}"))
-    return dict(bitwise=equal, max_diff=diff)
+    if not equal or cap["losses"] != eag["losses"]:
+        fail(f"{tag}: rungs {rungs} interleaved: captured losses "
+             f"{cap['losses']}, eager {eag['losses']}; state bitwise "
+             f"{equal} (largest difference {diff:.3e})")
+    log(f"[{tag}] bf16 rungs interleaved ({rungs}) under deterministic "
+        f"algorithms, captured against eager from one rewound state: train "
+        f"warm-ups, captures, replays {calls}; losses {cap['losses']}; "
+        f"every eval request, the losses, parameters, gradients and running "
+        f"statistics bitwise equal")
+    del state, rewind
+    return calls
+
+
+def _flat(x):
+    """The tensors of a nest of tensors, dicts (in key order), tuples and
+    lists."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _flat(x[k])]
+    return [t for v in x for t in _flat(v)]
+
+
+def train_tensors(state):
+    """Every tensor a train step updates in place: the parameters, the
+    buffers (running statistics), Adam's moments and count."""
+    opt = state.opt_state
+    return (list(state.model.parameters()) + list(state.model.buffers())
+            + list(opt["mu"].values()) + list(opt["nu"].values())
+            + [opt["count"]])
+
+
+def rewind_point(state, gens):
+    """-> a function that puts the train state's tensors back to what they
+    hold now, in place (a graph holds their addresses), with the host's
+    step count and the generators' states."""
+    import torch
+    tensors = train_tensors(state)
+    saved = [t.detach().clone() for t in tensors]
+    gens = [g for g in gens if g is not None]
+    gen_states = [g.get_state() for g in gens]
+    step = state.step
+
+    def rewind():
+        with torch.no_grad():
+            for t, v in zip(tensors, saved):
+                t.copy_(v)
+        for g, v in zip(gens, gen_states):
+            g.set_state(v)
+        state.step = step
+
+    return rewind
+
+
+def step_gaps(got, ref):
+    """(largest gradient difference over its tensor's largest |gradient|,
+    where that exceeds 1e-5; largest updated-parameter difference where
+    ref's |gradient| > 1e-5) of two step_record()s."""
+    grad, param = 0.0, 0.0
+    for n, gr_ in ref["grads"].items():
+        scale = float(gr_.abs().max())
+        if scale > 1e-5:
+            grad = max(grad, float((got["grads"][n] - gr_).abs().max())
+                       / scale)
+        cond = gr_.abs() > 1e-5
+        if bool(cond.any()):
+            param = max(param, float(
+                (got["params"][n] - ref["params"][n])[cond].abs().max()))
+    return grad, param
+
+
+def hold_train_replays(cfg, state, step, batches, gen, ctx, tag):
+    """One replay of ``step``'s graph per batch, each against the eager step
+    from the same state and generators (rewound in place): the loss within
+    phase 8's TRAIN_LOSS_RTOL. The eager step's own gradients differ from
+    run to run at B=512 (atomic sums in its backward), so the replay's
+    gradient and parameter differences from the eager step are printed
+    beside those of a second eager run from the same point; phase 14 holds
+    the whole state bitwise under deterministic algorithms. -> text"""
+    from graphvqa_tpu_torch.train.loop import make_train_step
+    eager = make_train_step(state.model, cfg, capture=False)
+    rows = []
+    for i, batch in enumerate(batches):
+        rewind = rewind_point(state, (gen, ctx))
+        replays = step.graphs.replays
+        _, m = step(state, batch, gen, ctx)
+        if step.graphs.replays != replays + 1:
+            fail(f"{tag}: a held train step did not replay its graph")
+        got = step_record(state.model, state, m)
+        runs = []
+        for _ in range(2):
+            rewind()
+            _, m = eager(state, batch, gen, ctx)
+            runs.append(step_record(state.model, state, m))
+        want, again = runs
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        if not math.isfinite(got["loss"]) or rel > TRAIN_LOSS_RTOL:
+            fail(f"{tag}: replay {i}: loss {got['loss']} against the eager "
+                 f"step's {want['loss']} (rel {rel:.2e}, limit "
+                 f"{TRAIN_LOSS_RTOL})")
+        (g_cap, p_cap), (g_eag, p_eag) = (step_gaps(got, want),
+                                          step_gaps(again, want))
+        rows.append(
+            f"replay {i}: loss {got['loss']:.7f} / eager {want['loss']:.7f}"
+            f" ({'bitwise' if got['loss'] == want['loss'] else f'rel {rel:.1e}'}"
+            f"); gradients {g_cap:.2e} of their scale (eager against eager "
+            f"{g_eag:.2e}), updated params {p_cap:.2e} ({p_eag:.2e})")
+    return "; ".join(rows)
+
+
+def hold_eval_replays(cfg, model, step, requests, ctx, tag, relative):
+    """One replay of ``step``'s graph per request, each against the eager
+    step on it from the same generator state (LCGN's ``ctx``), within
+    phase 4's limits (phase 12's with ``relative``): the top logit within
+    PARITY_ATOL (times max(1, the eager logits' largest |value|)), the
+    greedy answer equal but for near ties of the eager logits, the bitmap
+    within PARITY_ATOL; bitwise equality, the top logit's largest
+    difference and the program tokens' agreement reported. -> text"""
+    import dataclasses
+    import torch
+    from graphvqa_tpu_torch.train.loop import make_eval_step
+    eager = make_eval_step(model, cfg, capture=False)
+    rows = []
+    for i, req in enumerate(requests):
+        saved = None if ctx is None else ctx.get_state()
+
+        def rewound(fn):
+            if ctx is not None:
+                ctx.set_state(saved)
+            return fn()
+
+        replays = step.graphs.replays
+        got = step(req, ctx)
+        if step.graphs.replays != replays + 1:
+            fail(f"{tag}: a held request did not replay its graph")
+        want = rewound(lambda: eager(req, ctx))
+        with torch.inference_mode():
+            logits = rewound(lambda: model.sample(dataclasses.replace(
+                req, programs=req.programs[:, :-1],
+                full_answers=req.full_answers[:, :-1]), ctx_generator=ctx)
+            ).short_answer_logits.float()
+        equal, _ = _outputs_diff(got, want)
+        (gv, gt, _), (wv, wt, _) = got, want
+        limit = PARITY_ATOL * (max(1.0, float(logits.abs().max()))
+                               if relative else 1.0)
+        err = float((gv["sa_score"].float() - wv["sa_score"].float())
+                    .abs().max())
+        top2 = logits.topk(2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]) <= limit
+        differ = gv["sa_pred"] != wv["sa_pred"]
+        if err > limit or bool((differ & ~near).any()):
+            fail(f"{tag}: replay {i} against the eager request: top logit "
+                 f"{err:.4f} (limit {limit:.4f}), {int(differ.sum())} answers "
+                 f"differ ({int((differ & ~near).sum())} not near ties)")
+        extra = ""
+        if "execution_bitmap" in wv:
+            real = req.graphs.node_mask
+            b_err = float((gv["execution_bitmap"].float()
+                           - wv["execution_bitmap"].float())[real].abs().max())
+            if b_err > PARITY_ATOL:
+                fail(f"{tag}: replay {i}: bitmap differs from the eager "
+                     f"request's by {b_err:.4f}")
+            extra = f", bitmap {b_err:.4f}"
+        tok = float((gt == wt).float().mean())
+        rows.append(f"replay {i}: " + ("bitwise" if equal else
+                    f"top logit {err:.4f} (limit {limit:.4f}), answers "
+                    f"differ on {int(differ.sum())} (near ties "
+                    f"{int((differ & near).sum())}), tokens agree "
+                    f"{tok:.4f}{extra}"))
+    return "; ".join(rows)
 
 
 def timed_steps(fn, n):
@@ -1550,14 +1815,18 @@ def timed_steps(fn, n):
 
 def phase_graphs(dev, data):
     """Phase 14: the train and eval steps as CUDA graphs at full width,
-    B=512: the f32 train steps captured against eager; a bf16 eval request
-    captured against eager; a bumped rung's second graph; ms per step
-    captured and eager, each one's device busy time and host launch calls,
-    capture seconds per rung, peak memory, and the GAT launches per step
-    counted under replay."""
+    B=512: every family's f32 train steps captured against eager (bitwise,
+    deterministic algorithms); the main and a bumped rung interleaved,
+    captured against eager (bitwise, deterministic algorithms); then the
+    graphs the port runs: ms per step captured and eager, each one's device
+    busy time and host launch calls, the GAT launches per step counted where
+    the kernels ran, a bumped rung's second graph, capture seconds per
+    rung, peak memory, and the main rung's replays held against the eager
+    step between the bumped rung's."""
     import torch
     from graphvqa_tpu_torch.config import gat_config
-    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.ops.gat_round import (
+        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
     tag = "graphs"
@@ -1571,34 +1840,28 @@ def phase_graphs(dev, data):
         fail(f"{tag}: phase 9 reached no rung above {main}")
     bumped = min(above, key=lambda r: (r[0] * r[1], r))
     model = full_model(cfg, dev)
+    mains = [qa_batch(cfg, B, seed=510 + i).to(dev) for i in range(3)]
+    bigs = [rung_batch(cfg, data, bumped, seed=500 + i).to(dev)
+            for i in range(2)]
+    calls = graphs_rungs_parity(cfg, dev, model, [
+        (main, mains[0]), (main, mains[1]), (bumped, bigs[0]),
+        (bumped, bigs[1]), (main, mains[2]), (bumped, bigs[0]),
+        (main, mains[0])], tag)
+    if calls != (2, 2, 5):
+        fail(f"{tag}: the interleaved rungs ran (warm-ups, captures, "
+             f"replays) {calls}, expected (2, 2, 5)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
 
-    # eval: captured against eager on the same requests, then the times
+    # the graphs the port runs: eval, then train, on the main rung
     requests = [qa_batch(cfg, B, seed=400 + i).to(dev) for i in range(3)]
-    eager_eval = make_eval_step(model, cfg, capture=False)
-    # a graph captured under deterministic algorithms keeps their kernels
-    # (and the fills of fresh memory): this one serves the comparison only
-    det_eval = make_eval_step(model, cfg)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        for req in requests[:2]:        # the warm-up, then the capture
-            det_eval(req)
-        equal, diff = _outputs_diff(det_eval(requests[2]),
-                                    eager_eval(requests[2]))
-    finally:
-        torch.use_deterministic_algorithms(False)
-    del det_eval
     cap_eval = make_eval_step(model, cfg)
-    for req in requests[:2]:
+    eager_eval = make_eval_step(model, cfg, capture=False)
+    for req in requests[:2]:            # the warm-up, then the capture
         cap_eval(req)
-    if not equal:
-        fail(f"{tag}: the captured eval request differs from the eager one "
-             f"(largest difference {diff:.3e}: greedy tokens, top logit, "
-             f"node attention)")
-    gat_round.launches = 0
+    reset_launch_counts()
     eval_ms = {"captured": timed_steps(lambda: cap_eval(requests[1]), 3)}
-    eval_launches = gat_round.launches
+    eval_launches = launch_counts()[0]
     if eval_launches != rounds * 4:
         fail(f"{tag}: {eval_launches} gat_round launches in 4 replayed "
              f"requests, expected {rounds} per request")
@@ -1608,7 +1871,6 @@ def phase_graphs(dev, data):
                  for mode, step in (("captured", cap_eval),
                                     ("eager", eager_eval))}
 
-    # train: captured (warm-up, capture, 5 counted) and eager on one state
     state = create_train_state(model, lr=cfg.train.lr,
                                weight_decay=cfg.train.weight_decay)
     cap_train = make_train_step(model, cfg)
@@ -1617,10 +1879,10 @@ def phase_graphs(dev, data):
     gen = torch.Generator(device=dev).manual_seed(0)
     for _ in range(2):                  # the warm-up, then the capture
         cap_train(state, batch, gen)
-    gat_round.launches = gat_round_backward.launches = 0
+    reset_launch_counts()
     train_ms = {"captured": timed_steps(
         lambda: cap_train(state, batch, gen), 5)}
-    train_launches = (gat_round.launches, gat_round_backward.launches)
+    train_launches = launch_counts()
     if train_launches != (rounds * 6, rounds * 6):
         fail(f"{tag}: gat_round {train_launches[0]} and gat_round_backward "
              f"{train_launches[1]} launches in 6 replayed train steps, "
@@ -1632,19 +1894,26 @@ def phase_graphs(dev, data):
                                      ("eager", eager_train))}
     peak = peak_gib(dev)
 
-    # a bumped rung captures a second graph; the main rung then replays
-    big = rung_batch(cfg, data, bumped, seed=500).to(dev)
+    # a bumped rung captures a second graph; the main rung then replays,
+    # each replay held against the eager step between the bumped rung's
     for _ in range(2):
-        cap_train(state, big, gen)
-        cap_eval(big)
+        cap_train(state, bigs[0], gen)
+        cap_eval(bigs[0])
     before = (cap_train.graphs.captures, cap_eval.graphs.captures)
-    cap_train(state, batch, gen)
-    cap_eval(requests[0])
+    held = []
+    for i in range(2):
+        cap_train(state, bigs[1], gen)
+        cap_eval(bigs[1])
+        held.append(hold_train_replays(cfg, state, cap_train, [mains[i]],
+                                       gen, None, tag))
+        cap_eval(bigs[0])
+        held.append(hold_eval_replays(cfg, model, cap_eval, [requests[i]],
+                                      None, tag, relative=False))
     after = (cap_train.graphs.captures, cap_eval.graphs.captures)
     if before != (2, 2) or after != before or (
             len(cap_train.graphs.graphs), len(cap_eval.graphs.graphs)) != (2, 2):
         fail(f"{tag}: captures {before} after the bumped rung and {after} "
-             f"after the main rung's replay; graphs "
+             f"after the main rung's replays; graphs "
              f"{len(cap_train.graphs.graphs)} / {len(cap_eval.graphs.graphs)}"
              f", expected 2 and 2, 2 / 2")
     torch.cuda.synchronize()
@@ -1670,11 +1939,13 @@ def phase_graphs(dev, data):
                 f"{p.get('kernels', 0)} kernels, "
                 f"{p.get('host_launches', 0)} host launch calls")
         log(f"[{tag}] {name} B={B} bf16: " + "; ".join(parts))
+    log(f"[{tag}] main rung {main} replays between the bumped rung's "
+        f"{bumped}, against the eager step: train {held[0]}; eval "
+        f"{held[1]}; train {held[2]}; eval {held[3]}")
     log(f"[{tag}] capture seconds per rung: {capture_s}; bumped rung "
         f"{bumped} captured a second graph each, the main rung "
-        f"{main} then replayed (captures {after}); eval captured = eager "
-        f"bit for bit (deterministic algorithms); GAT launches counted "
-        f"under replay: eval {eval_launches // 4}, train "
+        f"{main} then replayed (captures {after}); GAT launches counted on "
+        f"the card under replay: eval {eval_launches // 4}, train "
         f"{train_launches[0] // 6} + {train_launches[1] // 6} per step; peak "
         f"memory with both main-rung graphs cached {peak}, with the bumped "
         f"rung's too {peak_gib(dev)}; phase "
@@ -1886,7 +2157,8 @@ def _rank_time(rank, case):
     """bf16 train steps at full width on this rank's batch: 1 warm-up and
     ``steps`` counted ones, the GAT launches counted over them."""
     import torch
-    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.ops.gat_round import (
+        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.parallel.data_parallel import reduce_gradients
     from graphvqa_tpu_torch.parallel.edge_sharded import (
         make_dp_edge_train_step, prepare_dp_edge_batch)
@@ -1907,7 +2179,7 @@ def _rank_time(rank, case):
     if case["warmup"]:
         step(state, batch, gen)
     torch.cuda.synchronize()
-    gat_round.launches = gat_round_backward.launches = 0
+    reset_launch_counts()
     times, losses = [], []
     for _ in range(case["steps"]):
         t0 = time.perf_counter()
@@ -1915,7 +2187,7 @@ def _rank_time(rank, case):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["total"]))
-    launches = gat_round.launches, gat_round_backward.launches
+    launches = launch_counts()
     # the step's one gradient all-reduce alone (it also averages the
     # running statistics, so the model is not used after this)
     reduce_ms = []

@@ -292,9 +292,10 @@ def build_config(args, text_vocab_size: int, sg_vocab_size: int):
 
 
 def _launches():
-    """(gat_round, gat_round_backward) kernel launches so far."""
-    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
-    return gat_round.launches, gat_round_backward.launches
+    """(gat_round, gat_round_backward) kernel launches so far, as the
+    kernels counted them on the card (replays of the step graphs too)."""
+    from graphvqa_tpu_torch.ops.gat_round import launch_counts
+    return launch_counts()
 
 
 def _print_graphs(what, step) -> None:

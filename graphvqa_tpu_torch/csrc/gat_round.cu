@@ -369,6 +369,8 @@ struct Params {
   void* out;
   void* alpha;         // null: no attention output
   int* next;   // graphs handed out past the first gridDim.x; 0 at launch
+  // this card's count of the kernel's launches, or null: block 0 adds one
+  unsigned long long* launches;
   int B, npg, epg, H, C, shift_graph, stage_bytes;
   float slope;
 };
@@ -384,6 +386,9 @@ template <typename T, int VEC, int HT, bool TRAIN>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     gat_round_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // counted where it runs, so a CUDA graph's replay counts too
+  if (p.launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(p.launches, 1ull);
   const int npg = p.npg, epg = p.epg, C = p.C, B = p.B;
   const int H = HT > 0 ? HT : p.H;
   const T* __restrict__ xw = static_cast<const T*>(p.xw);
@@ -736,7 +741,8 @@ extern "C" size_t gat_round_smem_bytes(int npg, int epg, int H, int C,
 // the shift given instead of the graph's max over its edges here), ins
 // [B, H, C] or null, out [B*npg, C],
 // alpha [B, epg, H] or null, next 4 bytes of scratch (the graph counter,
-// zeroed here on the stream). Launches on the current device.
+// zeroed here on the stream), launches an 8-byte count on this card or null
+// (the launch adds one to it on the card). Launches on the current device.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gat_round_launch(int dtype, const void* dl, const void* sl,
                                 const void* mask, const void* al,
@@ -744,9 +750,9 @@ extern "C" int gat_round_launch(int dtype, const void* dl, const void* sl,
                                 const void* keep, const void* gmax,
                                 const void* xw,
                                 const void* ins, void* out, void* alpha,
-                                void* next, int B, int npg, int epg, int H,
-                                int C, float slope, int shift_graph,
-                                void* stream) {
+                                void* next, void* launches, int B, int npg,
+                                int epg, int H, int C, float slope,
+                                int shift_graph, void* stream) {
   if (B <= 0 || npg <= 0 || epg <= 0 || H <= 0 || C <= 0 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -761,7 +767,9 @@ extern "C" int gat_round_launch(int dtype, const void* dl, const void* sl,
            static_cast<const float*>(keep),
            shift_graph ? static_cast<const float*>(gmax) : nullptr, xw, ins,
            out, alpha,
-           static_cast<int*>(next), B, npg, epg, H, C, shift_graph, 0, slope};
+           static_cast<int*>(next),
+           static_cast<unsigned long long*>(launches), B, npg, epg, H, C,
+           shift_graph, 0, slope};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? launch_vec<float>(vec, p, s)
                     : launch_vec<__nv_bfloat16>(vec, p, s);

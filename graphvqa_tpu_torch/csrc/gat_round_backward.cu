@@ -445,6 +445,8 @@ struct Params {
   float* dae;
   void* dins;          // null when ins is
   int* next;   // units handed out past the first gridDim.x; 0 at launch
+  // this card's count of the kernel's launches, or null: block 0 adds one
+  unsigned long long* launches;
   int B, npg, epg, H, C, shift_graph, stage_bytes;
   float slope;
 };
@@ -453,6 +455,9 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     gat_round_backward_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
+  // counted where it runs, so a CUDA graph's replay counts too
+  if (p.launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    atomicAdd(p.launches, 1ull);
   const int npg = p.npg, epg = p.epg, H = p.H, C = p.C;
   const int units = p.B * H;
   const size_t elem = sizeof(T);
@@ -1044,15 +1049,18 @@ extern "C" size_t gat_round_backward_smem_bytes(int npg, int epg, int H,
 // of out). Writes dxw [B*npg, H, C], dal/dar f32 [B*npg, H], dae f32
 // [B, epg, H] and, when ins is given, dins [B, H, C], each in full. next: 4
 // bytes of scratch (the work counter, zeroed here on the stream; it ends
-// holding the number of (graph, head) units handed out, B*H). Launches on
-// the current device; returns cudaGetLastError() after the launch.
+// holding the number of (graph, head) units handed out, B*H). launches: an
+// 8-byte count on this card or null (the launch adds one to it on the card).
+// Launches on the current device; returns cudaGetLastError() after the
+// launch.
 extern "C" int gat_round_backward_launch(
     int dtype, const void* dl, const void* sl, const void* mask,
     const void* al, const void* ar, const void* ae, const void* keep,
     const void* gmax, const void* xw, const void* ins, const void* g,
     void* dxw, void* dal,
-    void* dar, void* dae, void* dins, void* next, int B, int npg, int epg,
-    int H, int C, float slope, int shift_graph, void* stream) {
+    void* dar, void* dae, void* dins, void* next, void* launches, int B,
+    int npg, int epg, int H, int C, float slope, int shift_graph,
+    void* stream) {
   if (B <= 0 || npg <= 0 || epg <= 0 || H <= 0 || C <= 0 ||
       (int64_t)B * H > INT32_MAX / 2 || (dtype != 0 && dtype != 1) ||
       (ins == nullptr) != (dins == nullptr))
@@ -1069,7 +1077,8 @@ extern "C" int gat_round_backward_launch(
            shift_graph ? static_cast<const float*>(gmax) : nullptr, xw, ins,
            g, dxw,
            static_cast<float*>(dal), static_cast<float*>(dar),
-           static_cast<float*>(dae), dins, static_cast<int*>(next), B, npg,
+           static_cast<float*>(dae), dins, static_cast<int*>(next),
+           static_cast<unsigned long long*>(launches), B, npg,
            epg, H, C, shift_graph, 0, slope};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)

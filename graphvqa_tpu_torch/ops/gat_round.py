@@ -31,11 +31,13 @@ holding the number of units handed out.
 Both kernels launch on the current stream, so a CUDA graph can hold them
 (``train/graphs.py``). The libraries set a kernel's shared-memory attribute
 and query its occupancy on the first eager launch at each size; a launch
-that would need either while its stream captures raises instead. A replay
-runs no Python, so the step graphs add each graph's recorded launches to
-``gat_round.launches`` / ``gat_round_backward.launches``
-(:func:`add_launch_counts`) and set ``gat_round_backward.counter`` to the
-replayed graph's counter, which holds its count once the replay has run.
+that would need either while its stream captures raises instead. Each
+launch counts itself where it runs: block 0 adds one to a 64-bit word of
+its kernel on its card, so a graph's replay, which runs no Python, counts
+its launches as eager calls do (:func:`launch_counts`,
+:func:`reset_launch_counts`). A replay also sets no Python attribute, so
+the step graphs point ``gat_round_backward.counter`` at the replayed graph's
+counter, which holds its count once the replay has run.
 
 The wrapper takes each graph's edges as the dense packing lays them out
 (``core/packing.py:pack_graphs_dense``): the real edges first, sorted by
@@ -80,13 +82,13 @@ class KernelLibrary:
         self.paths, self.log, self.build_seconds = paths, log, build_seconds
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd = ctypes.CDLL(str(paths["forward"]))
-        fwd.gat_round_launch.argtypes = [ci] + [vp] * 13 + [ci] * 5 + [cf, ci, vp]
+        fwd.gat_round_launch.argtypes = [ci] + [vp] * 14 + [ci] * 5 + [cf, ci, vp]
         fwd.gat_round_launch.restype = ci
         fwd.gat_round_smem_bytes.argtypes = [ci] * 5
         fwd.gat_round_smem_bytes.restype = ctypes.c_size_t
         bwd = ctypes.CDLL(str(paths["backward"]))
         bwd.gat_round_backward_launch.argtypes = (
-            [ci] + [vp] * 17 + [ci] * 5 + [cf, ci, vp])
+            [ci] + [vp] * 18 + [ci] * 5 + [cf, ci, vp])
         bwd.gat_round_backward_launch.restype = ci
         bwd.gat_round_backward_smem_bytes.argtypes = [ci] * 5
         bwd.gat_round_backward_smem_bytes.restype = ctypes.c_size_t
@@ -98,6 +100,10 @@ _library: Optional[KernelLibrary] = None
 # epg, H, C, dtype): the least the kernel needs. Both fixed for a process.
 _smem_limit: dict = {}
 _smem_need: dict = {}
+# per (kernel, device index): the int64 word on that card to which each
+# launch of the kernel adds one
+_KINDS = ("gat_round", "gat_round_backward")
+_launch_words: dict = {}
 
 
 def _nvcc() -> str:
@@ -361,6 +367,40 @@ def _launch(fn, args, dev, what):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
+def _launch_word(kind: str, dev: torch.device) -> torch.Tensor:
+    """``kind``'s launch count on ``dev``'s card, made on its first eager
+    launch there (one made in a capture would lie in the graph's pool)."""
+    key = (kind, _device_index(dev))
+    word = _launch_words.get(key)
+    if word is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{kind} launches on {dev} for the first time inside a CUDA "
+                f"graph capture: run the step once eagerly before capturing")
+        # a normal tensor even when the first launch is an eval step's,
+        # so that reset_launch_counts may zero it anywhere
+        with torch.inference_mode(False):
+            word = _launch_words[key] = torch.zeros(1, dtype=torch.int64,
+                                                    device=dev)
+    return word
+
+
+def launch_counts() -> tuple:
+    """(gat_round, gat_round_backward) launches on every card since the
+    last :func:`reset_launch_counts`, as the kernels counted them where they
+    ran: eager launches and those of CUDA graph replays alike. Reads the
+    cards, so it waits for the work queued on them; (0, 0) where no kernel
+    has launched (on the CPU, the plain versions run)."""
+    return tuple(sum(int(w.item()) for (k, _), w in _launch_words.items()
+                     if k == kind) for kind in _KINDS)
+
+
+def reset_launch_counts() -> None:
+    """Set every card's launch counts to 0 (on the current stream)."""
+    for word in _launch_words.values():
+        word.zero_()
+
+
 def _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
                        ins_value, keep_scale, npg, epg, shift,
                        shift_max=None):
@@ -426,10 +466,10 @@ def _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
             alpha_l.data_ptr(), alpha_r.data_ptr(), alpha_e.data_ptr(),
             _ptr(keep_scale), _ptr(shift_max), xw.data_ptr(), _ptr(ins_value),
             out.data_ptr(),
-            _ptr(alpha), counter.data_ptr(), B, npg, epg, H, C,
+            _ptr(alpha), counter.data_ptr(),
+            _launch_word("gat_round", dev).data_ptr(), B, npg, epg, H, C,
             float(negative_slope), int(shift == "graph"))
     _launch(lib.fwd.gat_round_launch, args, dev, "gat_round")
-    gat_round.launches += 1
     return out, alpha
 
 
@@ -439,8 +479,8 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
     """The round's vjp -> (d_xw, d_alpha_l, d_alpha_r, d_alpha_e,
     d_ins_value or None), as :func:`gat_round_backward_reference` documents.
 
-    CUDA tensors launch ``csrc/gat_round_backward.cu`` (counted in
-    ``gat_round_backward.launches``); CPU tensors run the plain version."""
+    CUDA tensors launch ``csrc/gat_round_backward.cu`` (counted on the card,
+    :func:`launch_counts`); CPU tensors run the plain version."""
     if xw.device.type == "cpu":
         return gat_round_backward_reference(
             grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
@@ -471,16 +511,15 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
             _ptr(keep_scale), _ptr(shift_max), xw.data_ptr(),
             _ptr(ins_value), grad_out.data_ptr(), d_xw.data_ptr(), d_al.data_ptr(),
             d_ar.data_ptr(), d_ae.data_ptr(), _ptr(d_ins),
-            counter.data_ptr(), B, npg, epg, H, C, float(negative_slope),
-            int(shift == "graph"))
+            counter.data_ptr(),
+            _launch_word("gat_round_backward", dev).data_ptr(), B, npg, epg,
+            H, C, float(negative_slope), int(shift == "graph"))
     _launch(lib.bwd.gat_round_backward_launch, args, dev,
             "gat_round_backward")
-    gat_round_backward.launches += 1
     gat_round_backward.counter = counter
     return d_xw, d_al, d_ar, d_ae, d_ins
 
 
-gat_round_backward.launches = 0
 # the last launch's work counter (None before the first launch)
 gat_round_backward.counter = None
 
@@ -524,8 +563,8 @@ def gat_round(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value=None,
     """One fused GAT round -> [B*npg, C] in xw's dtype (see module doc);
     with ``return_alpha`` also the attention [B*epg, H] (no gradient).
 
-    CUDA tensors launch the kernel (and count the launch in
-    ``gat_round.launches``); CPU tensors run :func:`gat_round_reference`.
+    CUDA tensors launch the kernel (counted on the card,
+    :func:`launch_counts`); CPU tensors run :func:`gat_round_reference`.
     When a float input requires grad, the call goes through
     :class:`GATRoundFunction`, whose backward is the backward kernel (or its
     plain version on the CPU). ``alpha_e`` is cast to float32 here;
@@ -545,18 +584,3 @@ def gat_round(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value=None,
     out, alpha = _forward(*args)
     return (out, alpha) if return_alpha else out
 
-
-gat_round.launches = 0
-
-
-def launch_counts() -> tuple:
-    """(``gat_round.launches``, ``gat_round_backward.launches``)."""
-    return gat_round.launches, gat_round_backward.launches
-
-
-def add_launch_counts(counts: tuple) -> None:
-    """Add (forward, backward) launches to the counters: a CUDA graph's
-    replay launches the kernels it captured without running this module's
-    code, so its replays count them here."""
-    gat_round.launches += counts[0]
-    gat_round_backward.launches += counts[1]

@@ -13,8 +13,10 @@ dtypes and static sizes (:func:`batch_key`):
   over them into a CUDA graph and replays it once;
 * every later call copies its batch into those tensors and replays.
 
-Every call returns tensors of its own: the graph's outputs are cloned after
-the replay, since the next replay writes over them.
+A call returns the graph's own output tensors, which a later replay writes
+over (module doc below): a caller that keeps outputs past its next step
+copies them. ``train_one_epoch`` and ``multi_step`` copy the train
+metrics, and ``make_eval_step`` clones each request's answer.
 
 The generators the body draws from (dropout, LCGN's context features) are
 registered with each graph, so a replay draws what the eager body would draw
@@ -23,19 +25,23 @@ addresses of the tensors it read at capture, so the state and generators a
 :class:`StepGraphs` is bound to (``bind``) must stay the same objects; when
 any changes, its graphs are dropped and the next call warms up again.
 
-All graphs on a device share one memory pool. That is safe in any replay
-order because a body reads only its static inputs (made outside the pool),
-the parameters, moments and buffers (made outside it and updated in place)
-and what it wrote earlier in the same replay, and because each replay's
-outputs are cloned before another graph replays. A parameter's ``.grad``
-after a captured train step lies in the pool and holds that step's gradient
-until another graph replays.
+All graphs on a device share one memory pool, so one graph's replay may
+write its work tensors where another graph keeps its outputs or
+gradients, and PyTorch promises a shared pool only to graphs replayed in
+the order of their capture. Rungs replay in any order here, which is sound
+because no replay reads pool memory that it did not write itself: a body
+reads its static inputs (made outside the pool), the parameters, moments
+and buffers (made outside it and updated in place) and what it wrote
+earlier in the same replay. What a replay leaves in the pool, its outputs
+(the train step's metrics and gradients among them), holds its values only
+until the next replay of any rung: read or copy them before that.
+(``chip_smoke.py`` phase 14 holds the main rung's replays, interleaved
+with the bumped rung's, to the eager step.)
 
-A replay launches the kernels its capture recorded without running the
-Python wrappers, so the GAT kernels' launch counters
-(``ops/gat_round.py``) advance by the launches each graph recorded, and
-``gat_round_backward.counter`` becomes the replayed graph's counter, to be
-read after the replay.
+The GAT kernels count their launches on the card (``ops/gat_round.py``),
+so replays count as eager calls do. A replay runs no Python, so
+``gat_round_backward.counter`` is pointed at the replayed graph's counter,
+to be read after the replay.
 
 Only single-process steps are captured. The data-parallel and edge-sharded
 steps (``parallel/``) run collectives through gloo, which a CUDA graph
@@ -111,35 +117,34 @@ def batch_key(batch) -> tuple:
     return tuple(key)
 
 
-def _map_tensors(fn, obj):
+def map_tensors(fn, obj):
     """``obj`` (tensors in dataclasses, dicts, tuples and lists) with ``fn``
     applied to each tensor."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
-            f.name: _map_tensors(fn, getattr(obj, f.name))
+            f.name: map_tensors(fn, getattr(obj, f.name))
             for f in dataclasses.fields(obj)})
     if isinstance(obj, dict):
-        return {k: _map_tensors(fn, v) for k, v in obj.items()}
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
     if isinstance(obj, (tuple, list)):
-        return type(obj)(_map_tensors(fn, v) for v in obj)
+        return type(obj)(map_tensors(fn, v) for v in obj)
     return obj
 
 
 def _tensors(obj) -> list:
     out = []
-    _map_tensors(out.append, obj)
+    map_tensors(out.append, obj)
     return out
 
 
 @dataclasses.dataclass
 class _Graph:
-    """One key's graph: its static batch, its replay, the GAT launches its
-    capture recorded and its backward-kernel counter."""
+    """One key's graph: its static batch, its replay and its backward
+    kernel's counter."""
     static: Any = None
     replay: Optional[Callable[[], Any]] = None
-    launches: tuple = (0, 0)
     backward_counter: Optional[torch.Tensor] = None
 
 
@@ -160,7 +165,8 @@ class StepGraphs:
     def __call__(self, body: Callable[[Any], Any], batch,
                  generators: Sequence[Optional[torch.Generator]] = (),
                  bind: Sequence[Any] = ()):
-        """``body(batch)`` through the key's graph -> its outputs, cloned.
+        """``body(batch)`` through the key's graph -> its outputs (the
+        graph's own tensors on a replay: module doc).
         ``bind``: the objects whose tensors the body reads (the train
         state); ``generators``: those it draws from (None entries skipped)."""
         if batch.graphs.edge_group is not None:
@@ -188,10 +194,9 @@ class StepGraphs:
                 dst.copy_(src)
         out = entry.replay()
         self.replays += 1
-        gr.add_launch_counts(entry.launches)
         if entry.backward_counter is not None:
             gr.gat_round_backward.counter = entry.backward_counter
-        return _map_tensors(torch.clone, out)
+        return out
 
     def _warm_up(self, body, batch):
         device = batch.questions.device
@@ -205,17 +210,11 @@ class StepGraphs:
         return out
 
     def _capture(self, entry, key, body, batch, generators):
-        entry.static = _map_tensors(torch.clone, batch)
-        before, counter = gr.launch_counts(), gr.gat_round_backward.counter
+        entry.static = map_tensors(torch.clone, batch)
+        counter = gr.gat_round_backward.counter
         t0 = time.perf_counter()
-        try:
-            entry.replay = self.capture_fn(lambda: body(entry.static),
-                                           generators, batch.questions.device)
-        finally:
-            # the capture recorded these launches and ran none of them
-            entry.launches = tuple(
-                a - b for a, b in zip(gr.launch_counts(), before))
-            gr.add_launch_counts(tuple(-n for n in entry.launches))
+        entry.replay = self.capture_fn(lambda: body(entry.static),
+                                       generators, batch.questions.device)
         self.capture_seconds[key] = time.perf_counter() - t0
         self.captures += 1
         if gr.gat_round_backward.counter is not counter:

@@ -47,7 +47,7 @@ from graphvqa_tpu_torch.config import Config
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.models.pipeline import PipelineModel
 from graphvqa_tpu_torch.nn.execution import bitmap_precision_recall
-from graphvqa_tpu_torch.train.graphs import StepGraphs
+from graphvqa_tpu_torch.train.graphs import StepGraphs, map_tensors
 from graphvqa_tpu_torch.train.logging_utils import (
     AverageMeter, ProgressMeter, synchronize_meters)
 from graphvqa_tpu_torch.train.losses import total_loss
@@ -127,40 +127,45 @@ def multi_step(train_step: Callable, steps_per_dispatch: int) -> Callable:
         per_step: Dict[str, list] = {}
         for batch in batches:
             state, m = train_step(state, batch, generator, ctx_generator)
+            # copies: a replayed step's metrics are its graph's outputs,
+            # which the next replay overwrites
             for k, v in m.items():
-                per_step.setdefault(k, []).append(v)
+                per_step.setdefault(k, []).append(
+                    v.clone() if isinstance(v, torch.Tensor) else v)
         return state, reduce_scanned_metrics(per_step)
 
     return run
 
 
-def _graphs(model: torch.nn.Module, capture: bool,
-            capture_fn: Optional[Callable]) -> Optional[StepGraphs]:
+def _graphs(model: torch.nn.Module, capture: bool) -> Optional[StepGraphs]:
     """The step's graphs when it replays them: with ``capture`` on the card
-    (a model on the CPU runs eagerly), or wherever a test injects
-    ``capture_fn``."""
-    on_card = next(model.parameters()).device.type == "cuda"
-    if capture and (on_card or capture_fn is not None):
-        return StepGraphs(capture_fn)
+    (a model on the CPU runs eagerly)."""
+    if capture and next(model.parameters()).device.type == "cuda":
+        return StepGraphs()
     return None
 
 
 def make_train_step(model: PipelineModel, cfg: Config,
-                    steps_per_dispatch: int = 1, capture: bool = True,
-                    capture_fn: Optional[Callable] = None) -> Callable:
+                    steps_per_dispatch: int = 1,
+                    capture: bool = True) -> Callable:
     """One optimizer step per call, or K = ``steps_per_dispatch`` steps over
     a list of K batches. The state is updated in place (the parameters,
     moments and running statistics are large) and returned. On the card each
     step replays its batch shape's CUDA graph (module doc; ``capture=False``
-    keeps the eager step, the graphs are ``train_step.graphs``)."""
+    keeps the eager step, the graphs are ``train_step.graphs``). After a
+    step each parameter's ``.grad`` is that step's gradient (a replay points
+    it at its graph's gradient tensors). A replayed step's metrics and
+    gradients are its graph's outputs, which the next step overwrites: copy
+    what is kept longer (``train_one_epoch`` does)."""
 
     def body(state: TrainState, batch: QABatch, generator, ctx_generator):
         metrics = forward_backward(model, cfg, batch, generator,
                                    ctx_generator)
-        state.update({n: p.grad for n, p in model.named_parameters()})
-        return metrics
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        state.update(grads)
+        return metrics, grads
 
-    graphs = _graphs(model, capture, capture_fn)
+    graphs = _graphs(model, capture)
 
     def train_step(state: TrainState, batch: QABatch,
                    generator: torch.Generator,
@@ -168,16 +173,19 @@ def make_train_step(model: PipelineModel, cfg: Config,
         lr = state.current_lr()
         state.prepare()
         if graphs is None:
-            metrics = body(state, batch, generator, ctx_generator)
+            metrics, _ = body(state, batch, generator, ctx_generator)
         else:
-            metrics = graphs(
+            metrics, grads = graphs(
                 lambda b: body(state, b, generator, ctx_generator), batch,
                 (generator, ctx_generator),
                 bind=(state, state.opt_state, state.opt_state["count"],
                       state.lr_tensor))
+            # a replay runs no Python: .grad may still point at the tensors
+            # of an eager step or of another rung's graph
+            for n, p in model.named_parameters():
+                p.grad = grads[n]
         state.step += 1
-        metrics["lr"] = lr
-        return state, metrics
+        return state, dict(metrics, lr=lr)
 
     train_step.graphs = graphs
     if steps_per_dispatch <= 1:
@@ -187,11 +195,12 @@ def make_train_step(model: PipelineModel, cfg: Config,
     return run
 
 
-def make_eval_step(model: PipelineModel, cfg: Config, capture: bool = True,
-                   capture_fn: Optional[Callable] = None) -> Callable:
+def make_eval_step(model: PipelineModel, cfg: Config,
+                   capture: bool = True) -> Callable:
     """The greedy-decode step (module doc). On the card each request
-    replays its batch shape's CUDA graph; ``capture=False`` keeps the eager
-    step (the graphs are ``eval_step.graphs``)."""
+    replays its batch shape's CUDA graph, whose outputs are cloned: each
+    answer is the caller's to keep. ``capture=False`` keeps the eager step
+    (the graphs are ``eval_step.graphs``)."""
     pad = cfg.model.text.pad_idx
     steps = cfg.model.max_execution_steps
 
@@ -209,7 +218,7 @@ def make_eval_step(model: PipelineModel, cfg: Config, capture: bool = True,
             vectors["execution_bitmap"] = out.execution_bitmap
         return vectors, out.program_tokens, out.node_attention
 
-    graphs = _graphs(model, capture, capture_fn)
+    graphs = _graphs(model, capture)
 
     @torch.inference_mode()
     def eval_step(batch: QABatch,
@@ -219,7 +228,8 @@ def make_eval_step(model: PipelineModel, cfg: Config, capture: bool = True,
         ragged final batch. ``generator`` draws LCGN's context features."""
         if graphs is None:
             return body(batch, generator)
-        return graphs(lambda b: body(b, generator), batch, (generator,))
+        return map_tensors(torch.clone, graphs(
+            lambda b: body(b, generator), batch, (generator,)))
 
     eval_step.graphs = graphs
     return eval_step

@@ -18,10 +18,12 @@ what can be checked of them on the CPU:
       two-step comparison of that file);
   (c) ``train_one_epoch`` keeps each step's metrics apart when the step
       hands back the same tensors every call (a graph's static outputs);
-  (d) the graph cache, with a capture function injected on the CPU: one
-      entry per (shapes, dtype) key, reused across calls, a bumped rung
-      adds one, the first call at a key is the eager warm-up, and every
-      call advances the state once.
+  (d) the graph cache, with a capture function injected on the CPU (its
+      'graph' reruns the body into the same output tensors, as a replay
+      writes a graph's static outputs): one entry per (shapes, dtype) key,
+      reused across calls, a bumped rung adds one, the first call at a key
+      is the eager warm-up, every call advances the state once, and each
+      eval request's answer is a tensor of its own.
 The card's own check of capture against the eager step is
 ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py`` phase 14.
 """
@@ -45,7 +47,7 @@ from graphvqa_tpu.train.train_state import (
     create_train_state as jax_create_train_state)
 from graphvqa_tpu_torch.models.convert import from_jax_variables
 from graphvqa_tpu_torch.models.pipeline import PipelineModel, init_params
-from graphvqa_tpu_torch.train.graphs import StepGraphs, batch_key
+from graphvqa_tpu_torch.train.graphs import StepGraphs, _tensors, batch_key
 from graphvqa_tpu_torch.train.loop import (
     make_eval_step, make_train_step, train_one_epoch)
 from graphvqa_tpu_torch.train.train_state import (
@@ -322,23 +324,44 @@ def test_train_one_epoch_keeps_each_steps_metrics(monkeypatch):
 # --- (d) the graph cache --------------------------------------------------------
 
 class FakeCapture:
-    """A capture function for the CPU: the 'graph' reruns the body."""
+    """A capture function for the CPU: the 'graph' reruns the body and
+    writes its results into the tensors of its first run, as a replay
+    writes a graph's static outputs (capture itself runs nothing)."""
 
     def __init__(self):
         self.calls = []
 
     def __call__(self, fn, generators, device):
         self.calls.append(tuple(generators))
-        return fn
+        static = []
+
+        def replay():
+            out = fn()
+            if not static:
+                static.append(out)
+            else:
+                for dst, src in zip(_tensors(static[0]), _tensors(out)):
+                    dst.copy_(src)
+            return static[0]
+
+        return replay
 
 
-def test_one_graph_per_batch_key_and_an_eager_warm_up():
+def _inject(monkeypatch, capture):
+    """make_train_step / make_eval_step build their graphs with
+    ``capture`` wherever they are asked to capture (here, on the CPU)."""
+    monkeypatch.setattr(loop, "_graphs", lambda model, on: (
+        StepGraphs(capture) if on else None))
+
+
+def test_one_graph_per_batch_key_and_an_eager_warm_up(monkeypatch):
     jcfg, cfg = _family("gat")
     model, ref_model = _model(cfg), _model(cfg)
     state = create_train_state(model, lr=LR, weight_decay=WD)
     ref_state = create_train_state(ref_model, lr=LR, weight_decay=WD)
     capture = FakeCapture()
-    step = make_train_step(model, cfg, capture_fn=capture)
+    _inject(monkeypatch, capture)
+    step = make_train_step(model, cfg)
     ref_step = make_train_step(ref_model, cfg, capture=False)
     assert ref_step.graphs is None
     graphs = step.graphs
@@ -373,12 +396,13 @@ def test_one_graph_per_batch_key_and_an_eager_warm_up():
         assert torch.equal(p, q), n
 
 
-def test_a_new_state_or_generator_drops_the_graphs():
+def test_a_new_state_or_generator_drops_the_graphs(monkeypatch):
     jcfg, cfg = _family("lcgn")
     model = _model(cfg)
     state = create_train_state(model)
     capture = FakeCapture()
-    step = make_train_step(model, cfg, capture_fn=capture)
+    _inject(monkeypatch, capture)
+    step = make_train_step(model, cfg)
     batch = _batch(jcfg)
     gen, ctx = torch.Generator().manual_seed(0), torch.Generator().manual_seed(1)
     for _ in range(2):
@@ -391,11 +415,12 @@ def test_a_new_state_or_generator_drops_the_graphs():
     assert step.graphs.warm_ups == 3
 
 
-def test_eval_graphs_per_key_and_outputs_of_their_own():
+def test_eval_graphs_per_key_and_outputs_of_their_own(monkeypatch):
     jcfg, cfg = _family("gat_exec")
     model = _model(cfg)
     capture = FakeCapture()
-    step = make_eval_step(model, cfg, capture_fn=capture)
+    _inject(monkeypatch, capture)
+    step = make_eval_step(model, cfg)
     ref = make_eval_step(model, cfg, capture=False)
     batches = [_batch(jcfg, seed=s) for s in (1, 2, 3)]
     outs = [step(b) for b in batches]
@@ -409,13 +434,14 @@ def test_eval_graphs_per_key_and_outputs_of_their_own():
         assert torch.equal(tokens, rtokens) and torch.equal(att, ratt)
 
 
-def test_eager_on_the_cpu_and_edge_shards_refused():
+def test_eager_on_the_cpu_and_edge_shards_refused(monkeypatch):
     jcfg, cfg = _family("gat")
     model = _model(cfg)
     assert make_train_step(model, cfg).graphs is None
     assert make_eval_step(model, cfg).graphs is None
-    assert make_train_step(model, cfg, capture=False,
-                           capture_fn=FakeCapture()).graphs is None
+    _inject(monkeypatch, FakeCapture())
+    assert make_train_step(model, cfg, capture=False).graphs is None
+    assert make_eval_step(model, cfg, capture=False).graphs is None
     batch = _batch(jcfg)
     sharded = dataclasses.replace(batch, graphs=dataclasses.replace(
         batch.graphs, edge_group=object()))

@@ -27,7 +27,7 @@ from graphvqa_tpu_torch.core.packing import GraphSample, pack_graphs_dense
 from graphvqa_tpu_torch.ops.dense import dense_local_indices
 from graphvqa_tpu_torch.ops.gat_round import (
     gat_round, gat_round_backward, gat_round_backward_reference,
-    gat_round_reference)
+    gat_round_reference, launch_counts)
 # a top-level import: pytest puts tests/ on sys.path, and the card's machine
 # may have another package named `tests`
 from torch_port_fixtures import tiny_gat_seq, tiny_train_case
@@ -93,13 +93,13 @@ def _full_graphs(npg, epg, B, n, seed):
 
 
 def _check(args, ins, npg, epg, shift, dtype):
-    before = gat_round.launches
+    before = launch_counts()[0]
     got = gat_round(*args, ins, npg=npg, epg=epg, shift=shift)
     f32 = [a.float() if a.is_floating_point() else a for a in args]
     want = gat_round_reference(*f32, None if ins is None else ins.float(),
                                npg=npg, epg=epg, shift=shift)
     torch.cuda.synchronize()
-    assert gat_round.launches == before + 1
+    assert launch_counts()[0] == before + 1
     assert got.dtype == dtype and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want, **TOL[dtype])
 
@@ -257,7 +257,8 @@ def test_kernel_unaligned_xw_and_ins(dtype):
 
 def test_kernel_replays_in_a_cuda_graph():
     """Captured once and replayed twice: the graph counter is zeroed by a node
-    of the captured graph, so every replay hands every graph out again."""
+    of the captured graph, so every replay hands every graph out again; the
+    replays count their launches on the card, the capture none."""
     dev = _device()
     args, ins = _inputs(64, 256, 300, 4, 300, torch.bfloat16, seed=7, dev=dev)
     kw = dict(npg=64, epg=256, shift="graph")
@@ -267,6 +268,7 @@ def test_kernel_replays_in_a_cuda_graph():
         gat_round(*args, ins, **kw)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
     with torch.cuda.graph(graph):
         got = gat_round(*args, ins, **kw)
     f32 = [a.float() if a.is_floating_point() else a for a in args]
@@ -276,6 +278,8 @@ def test_kernel_replays_in_a_cuda_graph():
         graph.replay()
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want, **TOL[torch.bfloat16])
+    # the launches count where they run: the replays, not the capture
+    assert launch_counts() == (before[0] + 2, before[1])
 
 
 def test_gat_seq_float32_on_the_card():
@@ -329,7 +333,7 @@ def _check_backward(args, ins, keep, npg, epg, shift, dtype, seed=0):
     N, _, C = args[6].shape
     gen = torch.Generator(device=dev).manual_seed(seed)
     grad = torch.randn(N, C, generator=gen, device=dev).to(dtype)
-    before = gat_round_backward.launches
+    before = launch_counts()[1]
     got = gat_round_backward(grad, *args, ins, keep, npg=npg, epg=epg,
                              shift=shift)
     f32 = [a.float() if a.is_floating_point() else a for a in args]
@@ -337,7 +341,7 @@ def _check_backward(args, ins, keep, npg, epg, shift, dtype, seed=0):
         grad.float(), *f32, None if ins is None else ins.float(), keep,
         npg=npg, epg=epg, shift=shift)
     torch.cuda.synchronize()
-    assert gat_round_backward.launches == before + 1
+    assert launch_counts()[1] == before + 1
     names = ("d_xw", "d_alpha_l", "d_alpha_r", "d_alpha_e", "d_ins_value")
     for name, g, w in zip(names, got, want):
         if w is None:
@@ -435,7 +439,8 @@ def test_backward_other_head_counts(H, C):
 def test_backward_replays_in_a_cuda_graph():
     """Captured once and replayed twice against the plain version: the work
     counter is zeroed by a node of the captured graph, so every replay hands
-    every unit out again, and the replays equal an eager call bit for bit."""
+    every unit out again, and the replays equal an eager call bit for bit
+    and count their launches on the card."""
     dev = _device()
     args, ins = _inputs(64, 256, 300, 4, 300, torch.bfloat16, seed=30,
                         dev=dev)
@@ -448,6 +453,7 @@ def test_backward_replays_in_a_cuda_graph():
         eager = gat_round_backward(grad, *args, ins, keep, **kw)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
     with torch.cuda.graph(graph):
         got = gat_round_backward(grad, *args, ins, keep, **kw)
     f32 = [a.float() if a.is_floating_point() else a for a in args]
@@ -463,6 +469,7 @@ def test_backward_replays_in_a_cuda_graph():
                 torch.float32]
             torch.testing.assert_close(g.float(), w.float(), **tol)
             assert torch.equal(g, e)
+    assert launch_counts() == (before[0], before[1] + 2)
 
 
 @pytest.mark.parametrize("B", [1, 7, 133])
@@ -542,9 +549,9 @@ def test_autograd_through_both_kernels():
         out.backward(grad)
         return [t.grad for t in leaves + [ins_]]
 
-    f0, b0 = gat_round.launches, gat_round_backward.launches
+    f0, b0 = launch_counts()[0], launch_counts()[1]
     got = run(gat_round)
-    assert (gat_round.launches - f0, gat_round_backward.launches - b0) == (
+    assert (launch_counts()[0] - f0, launch_counts()[1] - b0) == (
         1, 1)
     want = run(gat_round_reference)
     for g, w in zip(got, want):
@@ -566,10 +573,10 @@ def test_train_step_on_the_card_matches_the_cpu():
     for device in ("cpu", dev):
         model = build_model(cfg.model, device=device, seed=3)
         state = create_train_state(model, lr=1e-3)
-        f0, b0 = gat_round.launches, gat_round_backward.launches
+        f0, b0 = launch_counts()[0], launch_counts()[1]
         _, m = make_train_step(model, cfg)(
             state, batch.to(device), torch.Generator(device=device))
-        launched = (gat_round.launches - f0, gat_round_backward.launches - b0)
+        launched = (launch_counts()[0] - f0, launch_counts()[1] - b0)
         runs.append((float(m["total"]), launched, {
             n: (p.detach().cpu(), None if p.grad is None else p.grad.cpu())
             for n, p in model.named_parameters()}))
@@ -623,19 +630,19 @@ def test_collated_batch_through_eval_and_train_steps(layout):
     logits = []
     for device in ("cpu", dev):
         model = build_model(cfg.model, device=device, seed=5)
-        f0 = gat_round.launches
+        f0 = launch_counts()[0]
         vectors, tokens, _ = make_eval_step(model, cfg)(batch.to(device))
         logits.append(vectors["sa_score"].cpu())
         if device != "cpu":
-            assert gat_round.launches - f0 == kernels
-            f0, b0 = gat_round.launches, gat_round_backward.launches
+            assert launch_counts()[0] - f0 == kernels
+            f0, b0 = launch_counts()[0], launch_counts()[1]
             _, m = make_train_step(model, cfg)(
                 create_train_state(model), batch.to(device),
                 torch.Generator(device=device).manual_seed(0))
             torch.cuda.synchronize()
             assert torch.isfinite(m["total"])
-            assert (gat_round.launches - f0,
-                    gat_round_backward.launches - b0) == (kernels, kernels)
+            assert (launch_counts()[0] - f0,
+                    launch_counts()[1] - b0) == (kernels, kernels)
     torch.testing.assert_close(logits[1], logits[0], rtol=1e-4, atol=1e-4)
 
 
@@ -671,15 +678,15 @@ def test_every_family_card_against_cpu(family):
         if kind == "lcgn":
             model.lcgn_seq.forward = functools.partial(
                 model.lcgn_seq.forward, x_ctx=noise.to(device))
-        f0 = gat_round.launches
+        f0 = launch_counts()[0]
         out = model.sample(batch.to(device))
-        launched = gat_round.launches - f0
-        f0, b0 = gat_round.launches, gat_round_backward.launches
+        launched = launch_counts()[0] - f0
+        f0, b0 = launch_counts()[0], launch_counts()[1]
         _, m = make_train_step(model, cfg)(
             create_train_state(model, lr=1e-3), batch.to(device),
             torch.Generator(device=device))
-        launched = (launched, gat_round.launches - f0,
-                    gat_round_backward.launches - b0)
+        launched = (launched, launch_counts()[0] - f0,
+                    launch_counts()[1] - b0)
         bitmap = out.execution_bitmap
         runs.append((out.short_answer_logits.cpu(),
                      None if bitmap is None else bitmap.cpu(),
@@ -819,11 +826,11 @@ def test_captured_steps_equal_the_eager_ones():
             gen = torch.Generator(device=dev).manual_seed(4)
             losses = []
             for batch in batches:
-                f0, g0 = gat_round.launches, gat_round_backward.launches
+                f0, g0 = launch_counts()[0], launch_counts()[1]
                 state, m = step(state, batch, gen)
                 losses.append(float(m["total"]))
-                assert (gat_round.launches - f0,
-                        gat_round_backward.launches - g0) == (rounds, rounds)
+                assert (launch_counts()[0] - f0,
+                        launch_counts()[1] - g0) == (rounds, rounds)
             runs.append((losses, {n: t.detach().clone()
                                   for n, t in model.state_dict().items()},
                          step.graphs))

@@ -22,7 +22,7 @@ from graphvqa_tpu.ops.pallas.fused_dense_gat import pallas_fused_dense_gat
 from graphvqa_tpu_torch.core.packing import GraphSample, pack_graphs_dense
 from graphvqa_tpu_torch.ops.dense import dense_local_indices
 from graphvqa_tpu_torch.ops.gat_round import (
-    edges_dst_sorted, gat_round, gat_round_reference)
+    edges_dst_sorted, gat_round, gat_round_reference, launch_counts)
 from tests.torch_port_helpers import port_graph
 
 RUNGS = [(8, 16), (64, 256)]
@@ -133,11 +133,11 @@ def test_reference_matches_dense_gat_aggregate(npg, epg, shift, monkeypatch):
 def test_wrapper_runs_plain_version_on_cpu_only():
     _, jg, a = _case(8, 16, seed=4)
     _, args = _port_inputs(jg, a)
-    before = gat_round.launches
+    before = launch_counts()
     got = gat_round(*args, npg=8, epg=16)
     want = gat_round_reference(*args, npg=8, epg=16)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert gat_round.launches == before          # no kernel on the CPU
+    assert launch_counts() == before == (0, 0)   # no kernel on the CPU
     meta = [t.to("meta") for t in args]
     with pytest.raises(ValueError, match="cuda or cpu"):
         gat_round(*meta, npg=8, epg=16)

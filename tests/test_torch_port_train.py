@@ -51,7 +51,7 @@ from graphvqa_tpu_torch.nn.norm import MaskedBatchNorm
 from graphvqa_tpu_torch.nn.transformer import block_causal_mask, dropout
 from graphvqa_tpu_torch.ops.gat_round import (
     gat_round, gat_round_backward, gat_round_backward_reference,
-    gat_round_reference)
+    gat_round_reference, launch_counts)
 from graphvqa_tpu_torch.train import losses, metrics
 from graphvqa_tpu_torch.train.checkpoint import (
     restore_checkpoint, save_checkpoint)
@@ -160,12 +160,12 @@ def test_backward_wrapper_runs_plain_version_on_cpu():
     _, jg, a = _case(8, 16, seed=4)
     _, args = _port_inputs(jg, a)
     grad = torch.ones(args[6].shape[0], args[6].shape[2])
-    before = gat_round_backward.launches
+    before = launch_counts()
     got = gat_round_backward(grad, *args, npg=8, epg=16)
     want = gat_round_backward_reference(grad, *args, npg=8, epg=16)
     for g, w in zip(got[:4], want[:4]):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert got[4] is None and gat_round_backward.launches == before
+    assert got[4] is None and launch_counts() == before == (0, 0)
 
 
 def test_padded_rows_and_edges_get_zero_gradients():

@@ -84,7 +84,7 @@ def _cpu(t):
 
 
 def _train(case, dev):
-    from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_backward
+    from graphvqa_tpu_torch.ops.gat_round import launch_counts
     from graphvqa_tpu_torch.parallel.edge_sharded import (
         make_dp_edge_train_step, prepare_dp_edge_batch)
     from graphvqa_tpu_torch.parallel.mesh import data_seed, make_mesh
@@ -102,7 +102,7 @@ def _train(case, dev):
                                    steps_per_dispatch=K)
     gen = torch.Generator(device=dev).manual_seed(data_seed(0, mesh))
     ctx = torch.Generator(device=dev).manual_seed(data_seed(1, mesh))
-    before = gat_round.launches, gat_round_backward.launches
+    before = launch_counts()
     _, metrics = step(state, batches if K > 1 else batches[0], gen, ctx)
     return dict(
         params={n: _cpu(p) for n, p in model.named_parameters()},
@@ -113,8 +113,7 @@ def _train(case, dev):
         stats={n: _cpu(t) for n, t in state.batch_stats.items()},
         metrics={k: float(v) for k, v in metrics.items()},
         epg_loc=[b.graphs.edges_per_graph for b in batches],
-        launches=(gat_round.launches - before[0],
-                  gat_round_backward.launches - before[1]))
+        launches=tuple(n - b for n, b in zip(launch_counts(), before)))
 
 
 def _eval(case, dev):

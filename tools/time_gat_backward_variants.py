@@ -111,7 +111,7 @@ def phase3_launcher(lib_path, dtype, shift="graph"):
     lib = ctypes.CDLL(str(lib_path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gat_round_backward_launch.argtypes = (
-        [ci] + [vp] * 17 + [ci] * 5 + [cf, ci, vp])
+        [ci] + [vp] * 18 + [ci] * 5 + [cf, ci, vp])
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
@@ -120,8 +120,8 @@ def phase3_launcher(lib_path, dtype, shift="graph"):
                 "dl", "sl", "mask", "al", "ar", "ae")),
             keep.data_ptr(), None, xw.data_ptr(), ins.data_ptr(),
             grad.data_ptr(),
-            *(t.data_ptr() for t in outs), counter.data_ptr(), cs.B, cs.NPG,
-            cs.EPG, cs.H, cs.C, 0.2, int(shift == "graph"), stream)
+            *(t.data_ptr() for t in outs), counter.data_ptr(), None, cs.B,
+            cs.NPG, cs.EPG, cs.H, cs.C, 0.2, int(shift == "graph"), stream)
         if err:
             sys.exit(f"{lib_path.name}: launch failed: CUDA error {err}")
     return launch, lib
