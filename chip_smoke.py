@@ -91,19 +91,29 @@ Phases, in order; any failure exits non-zero:
               gat_config() at full width, two ranks of B=256: one f32 step
               whose per-rank gradients equal the single-process step on each
               rank's batch and whose parameters equal the average-then-Adam,
-              then bf16 steps (ms per step per rank, GAT launches 5 + 5 per
-              rank per step). (c) the edge-sharded step, B=512 at data 1 x
-              edge 2: one f32 step against the single-process step (phase
-              8's limits, with the ReLU pins), bf16 steps with the epg_loc
-              reached; then one step at data 2 x edge 2 on 4 ranks. (d) the
-              CLI under torchrun: one rank on nccl (an epoch, validation,
-              --resume --evaluate with the dumps) and --data-parallel 2 on
-              two ranks over gloo, whose gathered dump holds every val
-              question once. (e) convert_ckpt_cli on a reference-format
-              checkpoint of the seeded full-width model, restored logits
-              equal, --resume --evaluate on the card. Several ranks on one
-              card measure the port's overheads, not scaling; their steps
-              run eagerly (gloo's collectives cannot be captured)
+              then three f32 steps captured (graph A, gloo's one all-reduce
+              on the host, graph B) against eager, bitwise under
+              deterministic algorithms, then bf16 steps eager and captured
+              side by side (ms per step per rank, host launch calls, one
+              all-reduce per step, capture seconds, peak memory, GAT
+              launches 5 + 5 per rank per step counted on the card); then
+              the same step on a one-rank NCCL group given as the mesh's
+              world group, its all-reduce captured inside the one graph,
+              bitwise against eager. (c) the edge-sharded step, B=512 at
+              data 1 x edge 2: one f32 step against the single-process step
+              (phase 8's limits, with the ReLU pins), bf16 steps with the
+              epg_loc reached; then one step at data 2 x edge 2 on 4 ranks;
+              eager (its collectives inside the forward and backward run
+              through gloo, which no graph holds). (d) the CLI under
+              torchrun: one rank on nccl (an epoch, validation, --resume
+              --evaluate with the dumps) and --data-parallel 2 on two ranks
+              over gloo (two epochs), whose gathered dump holds every val
+              question once and each of whose ranks captures and replays
+              its train and eval steps. (e) convert_ckpt_cli on a
+              reference-format checkpoint of the seeded full-width model,
+              restored logits equal, --resume --evaluate on the card.
+              Several ranks on one card measure the port's overheads, not
+              scaling
  14. graphs   the steps as CUDA graphs at full width, B=512: per family
               (gat and phase 12's), three f32 train steps with dropout (and
               LCGN's context draws), captured (warm-up, capture, replay)
@@ -2085,16 +2095,17 @@ def step_record(model, state, m, seconds=0.0):
         metrics={k: float(v) for k, v in m.items()})
 
 
-def _rank_main(rank, world, cases):
-    """A spawned rank: gloo on the one card, the cases in order."""
+def _rank_main(rank, world, cases, backend):
+    """A spawned rank: ``backend`` (gloo, or nccl for one rank) on the one
+    card, the cases in order."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
     dist.init_process_group(
-        "gloo", init_method=f"file://{MULTI_DIR}/store{world}", rank=rank,
-        world_size=world)
+        backend, init_method=f"file://{MULTI_DIR}/store{world}{backend}",
+        rank=rank, world_size=world)
     try:
         for case in cases:
             RANK_CASES[case["kind"]](rank, case)
@@ -2127,7 +2138,7 @@ def _rank_check(rank, case):
             model, torch.load(case["relu_ref"], weights_only=False),
             f"multi {case['name']} rank {rank}", edge_rows=rows)
     state = create_train_state(model, lr=cfg.train.lr)
-    step = make_dp_edge_train_step(model, cfg, mesh)
+    step = make_dp_edge_train_step(model, cfg, mesh, capture=False)
     gen = torch.Generator(device=dev).manual_seed(data_seed(0, mesh))
     torch.use_deterministic_algorithms(True, warn_only=True)
     _, m = step(state, batch, gen)
@@ -2135,6 +2146,115 @@ def _rank_check(rank, case):
     torch.use_deterministic_algorithms(False)
     rec = step_record(model, state, m)
     rec.update(pins=pins, epg_loc=batch.graphs.edges_per_graph)
+    if case.get("captured"):
+        del step
+        batches = [qa_batch(cfg, case["batch"], seed=case["seed"] + 10 * i
+                            + mesh.data_rank).to(dev) for i in (1, 2, 3)]
+        rec["captured"] = hold_dp_capture(cfg, mesh, state, batches, gen,
+                                          f"multi {case['name']} rank {rank}")
+    torch.save(rec, MULTI_DIR / f"{case['name']}_rank{rank}.pt")
+
+
+def dp_record(state, metrics):
+    """A DP run's end on the CPU: step_record's and Adam's moments, with
+    every step's metrics."""
+    rec = step_record(state.model, state, metrics[-1])
+    rec.update(metrics=metrics, **{
+        k: {n: t.cpu() for n, t in state.opt_state[k].items()}
+        for k in ("mu", "nu")})
+    return rec
+
+
+def hold_dp_capture(cfg, mesh, state, batches, gen, tag):
+    """Three float32 steps of make_dp_train_step on ``batches``, eager and
+    then captured (warm-up, capture, replay) from the same state and
+    generator (rewound in place), under deterministic algorithms, the eager
+    run's cache freed before the capture: every step's metrics, the
+    parameters, this rank's own gradients, Adam's moments and the running
+    statistics, bitwise. Counts the Python calls of dist.all_reduce per
+    step (over NCCL the replays issue none: the all-reduce is inside the
+    graph). -> dict(graphs (warm-ups, captures, replays), all_reduces
+    {captured, eager}, capture_s, peak)"""
+    import torch
+    import torch.distributed as dist
+    from graphvqa_tpu_torch.parallel.data_parallel import make_dp_train_step
+    rewind = rewind_point(state, (gen,))
+    all_reduce, runs, reduces = dist.all_reduce, {}, {}
+
+    def counted(*args, **kwargs):
+        reduces[mode][-1] += 1
+        return all_reduce(*args, **kwargs)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.all_reduce = counted
+    try:
+        for mode in ("eager", "captured"):
+            rewind()
+            torch.cuda.empty_cache()
+            step = make_dp_train_step(state.model, cfg, mesh,
+                                      capture=mode == "captured")
+            metrics, reduces[mode] = [], []
+            for batch in batches:
+                reduces[mode].append(0)
+                _, m = step(state, batch, gen)
+                metrics.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            runs[mode] = dp_record(state, metrics)
+            graphs = step.graphs
+            del step
+    finally:
+        dist.all_reduce = all_reduce
+        torch.use_deterministic_algorithms(False)
+    calls = (graphs.warm_ups, graphs.captures, graphs.replays)
+    if calls != (1, 1, 2):
+        fail(f"{tag}: the captured DP steps ran (warm-ups, captures, "
+             f"replays) {calls}, expected (1, 1, 2)")
+    cap, eag = runs["captured"], runs["eager"]
+    keys = ("params", "grads", "stats", "mu", "nu")
+    equal, diff = _outputs_diff([cap[k] for k in keys],
+                                [eag[k] for k in keys])
+    if not equal or cap["metrics"] != eag["metrics"]:
+        fail(f"{tag}: captured DP steps against eager: metrics equal "
+             f"{cap['metrics'] == eag['metrics']}, state bitwise {equal} "
+             f"(largest difference {diff:.3e})")
+    return dict(graphs=calls, all_reduces=reduces,
+                capture_s=sum(graphs.capture_seconds.values()),
+                losses=[m["total"] for m in cap["metrics"]],
+                peak=peak_gib(torch.device("cuda", 0)))
+
+
+def _rank_nccl(rank, case):
+    """The DP step on a one-rank NCCL group given as the mesh's world group
+    (make_mesh leaves a world of one without a group), so the all-reduce is
+    issued and captured inside the step's one graph: three float32 steps
+    held bitwise against eager (hold_dp_capture), then bf16 steps captured
+    (the warm-up, the capture, ``steps`` counted replays) and eager (1
+    warm-up, ``steps`` counted): ms per step, GAT launches counted on the
+    card."""
+    import torch
+    import torch.distributed as dist
+    from graphvqa_tpu_torch.parallel.mesh import Mesh
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = torch.device("cuda", 0)
+    mesh = Mesh(data=1, edge=1, rank=0, world_group=dist.group.WORLD)
+    backend = dist.get_backend(mesh.world_group)
+    cfg32, cfg = case["cfg32"], case["cfg"]
+    model = full_model(cfg32, dev)
+    state = create_train_state(model, lr=cfg32.train.lr)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [qa_batch(cfg32, case["batch"], seed=case["seed"] + i).to(dev)
+               for i in range(3)]
+    rec = dict(backend=backend, check=hold_dp_capture(
+        cfg32, mesh, state, batches, gen, f"multi nccl ({backend})"))
+    del model, state, batches
+    torch.cuda.empty_cache()
+    model = full_model(cfg, dev)
+    state = create_train_state(model, lr=cfg.train.lr)
+    batch = qa_batch(cfg, case["batch"], seed=case["seed"] + 9).to(dev)
+    for mode, untimed in (("captured", 2), ("eager", 1)):
+        rec[mode] = time_dp_steps(cfg, mesh, state, batch, gen, mode,
+                                  untimed, case["steps"])
+    rec["peak"] = peak_gib(dev)
     torch.save(rec, MULTI_DIR / f"{case['name']}_rank{rank}.pt")
 
 
@@ -2153,15 +2273,67 @@ def share_edge_rows(graphs, mesh):
     return torch.where(share.edge_mask, share.edge_tokens[:, 0].long(), -1)
 
 
-def _rank_time(rank, case):
-    """bf16 train steps at full width on this rank's batch: 1 warm-up and
-    ``steps`` counted ones, the GAT launches counted over them."""
+def time_dp_steps(cfg, mesh, state, batch, gen, mode, untimed, steps,
+                  profile=None):
+    """``steps`` timed calls of make_dp_train_step ("captured" or "eager")
+    after ``untimed`` ones, the GAT launches (counts set to 0 just before,
+    read just after) and the Python calls of dist.all_reduce per step
+    counted over them; with ``profile`` (a tag) then one profiled step and
+    the peak memory. -> dict(times, losses, launches, reduces[, prof,
+    peak][, calls, capture_s])"""
     import torch
+    import torch.distributed as dist
     from graphvqa_tpu_torch.ops.gat_round import (
         launch_counts, reset_launch_counts)
-    from graphvqa_tpu_torch.parallel.data_parallel import reduce_gradients
-    from graphvqa_tpu_torch.parallel.edge_sharded import (
-        make_dp_edge_train_step, prepare_dp_edge_batch)
+    from graphvqa_tpu_torch.parallel.data_parallel import make_dp_train_step
+    step = make_dp_train_step(state.model, cfg, mesh,
+                              capture=mode == "captured")
+    for _ in range(untimed):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    all_reduce, times, losses, reduces = dist.all_reduce, [], [], []
+
+    def counted(*args, **kwargs):
+        reduces[-1] += 1
+        return all_reduce(*args, **kwargs)
+
+    reset_launch_counts()
+    dist.all_reduce = counted
+    try:
+        for _ in range(steps):
+            reduces.append(0)
+            t0 = time.perf_counter()
+            _, m = step(state, batch, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["total"]))
+    finally:
+        dist.all_reduce = all_reduce
+    out = dict(times=times, losses=losses, launches=launch_counts(),
+               reduces=reduces)
+    if profile is not None:
+        out["prof"] = profiled_step(lambda: step(state, batch, gen),
+                                    f"{profile} {mode}", 0)
+        out["peak"] = peak_gib(torch.device("cuda", 0))
+    if step.graphs is not None:
+        out.update(calls=(step.graphs.warm_ups, step.graphs.captures,
+                          step.graphs.replays),
+                   capture_s=sum(step.graphs.capture_seconds.values()))
+    return out
+
+
+def _rank_time(rank, case):
+    """bf16 train steps at full width on this rank's batch: 1 warm-up and
+    ``steps`` counted eager ones, the GAT launches and the Python calls of
+    dist.all_reduce counted over them; with ``captured``, then the same
+    through the captured step (the eager run's cache freed first: the
+    warm-up, the capture, ``steps`` counted replays), and one profiled step
+    of each; then the step's one all-reduce alone on a buffer of its
+    size."""
+    import torch
+    import torch.distributed as dist
+    from graphvqa_tpu_torch.parallel.data_parallel import StepReduce
+    from graphvqa_tpu_torch.parallel.edge_sharded import prepare_dp_edge_batch
     from graphvqa_tpu_torch.parallel.mesh import data_seed, make_mesh
     from graphvqa_tpu_torch.train.train_state import create_train_state
     dev = torch.device("cuda", 0)
@@ -2174,52 +2346,50 @@ def _rank_time(rank, case):
     batch = batch.to(dev)
     tc = cfg.train
     state = create_train_state(model, lr=tc.lr, weight_decay=tc.weight_decay)
-    step = make_dp_edge_train_step(model, cfg, mesh)
     gen = torch.Generator(device=dev).manual_seed(data_seed(0, mesh))
-    if case["warmup"]:
-        step(state, batch, gen)
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    times, losses = [], []
-    for _ in range(case["steps"]):
-        t0 = time.perf_counter()
-        state, m = step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(m["total"]))
-    launches = launch_counts()
-    # the step's one gradient all-reduce alone (it also averages the
-    # running statistics, so the model is not used after this)
+    profile = (f"multi {case['name']} rank {rank}" if case.get("captured")
+               else None)
+    rec = time_dp_steps(cfg, mesh, state, batch, gen, "eager",
+                        1 if case["warmup"] else 0, case["steps"], profile)
+    if case.get("captured"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec["captured"] = time_dp_steps(cfg, mesh, state, batch, gen,
+                                        "captured", 2, case["steps"], profile)
+    # the step's one all-reduce alone, on a buffer of the gradients' and
+    # statistics' size (and none of the step's tensors)
+    sizes = StepReduce(model, mesh)
+    flat = torch.zeros(sizes.n_grad + sizes.n_stat, device=dev)
     reduce_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        reduce_gradients(model, mesh)
+        dist.all_reduce(flat, group=mesh.world_group)
         torch.cuda.synchronize()
         reduce_ms.append((time.perf_counter() - t0) * 1e3)
-    torch.save(dict(times=times, losses=losses, launches=launches,
-                    epg_loc=batch.graphs.edges_per_graph,
-                    reduce_ms=statistics.median(reduce_ms),
-                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30),
-               MULTI_DIR / f"{case['name']}_rank{rank}.pt")
+    rec.update(epg_loc=batch.graphs.edges_per_graph,
+               reduce_ms=statistics.median(reduce_ms),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    torch.save(rec, MULTI_DIR / f"{case['name']}_rank{rank}.pt")
 
 
-RANK_CASES = {"check": _rank_check, "time": _rank_time}
+RANK_CASES = {"check": _rank_check, "time": _rank_time,
+              "nccl": _rank_nccl}
 
 
-def run_ranks(world, cases):
-    """``cases`` on ``world`` spawned gloo ranks sharing the card; each
-    rank's saved results by case name."""
+def run_ranks(world, cases, backend="gloo"):
+    """``cases`` on ``world`` spawned ranks sharing the card; each rank's
+    saved results by case name."""
     import torch
     import torch.multiprocessing as mp
-    (MULTI_DIR / f"store{world}").unlink(missing_ok=True)
+    (MULTI_DIR / f"store{world}{backend}").unlink(missing_ok=True)
     t0 = time.perf_counter()
-    mp.start_processes(_rank_main, args=(world, cases), nprocs=world,
-                       join=True, start_method="spawn")
+    mp.start_processes(_rank_main, args=(world, cases, backend),
+                       nprocs=world, join=True, start_method="spawn")
     out = {c["name"]: [torch.load(MULTI_DIR / f"{c['name']}_rank{r}.pt",
                                   weights_only=False) for r in range(world)]
            for c in cases}
-    log(f"[multi] {world} ranks over gloo on one card: "
+    log(f"[multi] {world} ranks over {backend} on one card: "
         f"{', '.join(c['name'] for c in cases)} in "
         f"{time.perf_counter() - t0:.1f}s")
     return out
@@ -2249,40 +2419,71 @@ def reference_step(cfg, dev, batch, relu_record=None):
 
 
 def _timing_line(tag, runs, rounds):
-    """Per-rank ms per step and launches of a 'time' case; fails on a
-    non-finite loss or launches other than ``rounds`` + ``rounds`` per
-    rank per step."""
-    parts = []
+    """Per-rank ms per step and launches of a 'time' case, its captured run
+    beside the eager one where it has one (host launch calls, capture
+    seconds, peak memory); fails on a non-finite loss, on launches other
+    than ``rounds`` + ``rounds`` per rank per step in either run, or on a
+    captured run that made other than one all-reduce per step. -> the GAT
+    launches of the run the path takes: the captured one where there is
+    one."""
     total = [0, 0]
-    for r, run in enumerate(runs):
-        steps = len(run["times"])
-        if run["launches"] != (rounds * steps, rounds * steps):
-            fail(f"{tag} rank {r}: gat_round / gat_round_backward launches "
-                 f"{run['launches']} in {steps} steps, expected {rounds} "
-                 f"each per step")
-        if not all(map(math.isfinite, run["losses"])):
-            fail(f"{tag} rank {r}: non-finite loss {run['losses']}")
-        total[0] += run["launches"][0]
-        total[1] += run["launches"][1]
-        parts.append(f"rank {r}: ms/step "
-                     f"{', '.join(f'{t * 1e3:.2f}' for t in run['times'])}, "
-                     f"loss {', '.join(f'{v:.5f}' for v in run['losses'])}, "
-                     f"epg_loc {run['epg_loc']}, the gradient all-reduce "
-                     f"alone {run['reduce_ms']:.1f} ms, peak "
-                     f"{run['peak_gib']:.2f} GiB")
-    log(f"[{tag}] " + "; ".join(parts) + f"; launches per rank per step "
-        f"{rounds} + {rounds}")
+    for r, rec in enumerate(runs):
+        modes = ([("captured", rec["captured"])] if "captured" in rec
+                 else []) + [("eager", rec)]
+        texts = []
+        for mode, run in modes:
+            steps = len(run["times"])
+            if run["launches"] != (rounds * steps, rounds * steps):
+                fail(f"{tag} rank {r} {mode}: gat_round / "
+                     f"gat_round_backward launches {run['launches']} in "
+                     f"{steps} steps, expected {rounds} each per step")
+            if not all(map(math.isfinite, run["losses"])):
+                fail(f"{tag} rank {r} {mode}: non-finite loss "
+                     f"{run['losses']}")
+            if mode == "captured" and run["reduces"] != [1] * steps:
+                fail(f"{tag} rank {r}: dist.all_reduce calls per captured "
+                     f"step {run['reduces']}, expected 1 each")
+            text = (f"{mode} ms/step "
+                    f"{', '.join(f'{t * 1e3:.2f}' for t in run['times'])}, "
+                    f"loss {', '.join(f'{v:.5f}' for v in run['losses'])}, "
+                    f"dist.all_reduce calls per step {run['reduces']}")
+            prof = run.get("prof")
+            if prof is not None:
+                text += (f", profiled: wall {prof['wall_ms']:.2f} ms, device "
+                         f"busy {prof['busy_ms']:.2f} ms, "
+                         f"{prof['host_launches']} host launch calls")
+            if "calls" in run:
+                text += (f", (warm-ups, captures, replays) {run['calls']}, "
+                         f"capture {run['capture_s']:.3f}s")
+            if "peak" in run:
+                text += f", peak {run['peak']}"
+            texts.append(text)
+        main = modes[0][1]["launches"]
+        total[0] += main[0]
+        total[1] += main[1]
+        log(f"[{tag}] rank {r}: " + "; ".join(texts) + f"; epg_loc "
+            f"{rec['epg_loc']}, the gradient all-reduce alone "
+            f"{rec['reduce_ms']:.1f} ms, peak {rec['peak_gib']:.2f} GiB "
+            f"allocated in the rank")
+    log(f"[{tag}] launches per rank per step {rounds} + {rounds}, counted "
+        f"on the card")
     return total
 
 
 def phase_dp(dev):
     """13b: the data-parallel step, gat_config() at full width, two ranks
-    of B=256 on the card. One float32 step: each rank's own gradient equals
-    the single-process step on its batch, and the updated parameters the
-    average-then-Adam of those two steps (phase 8's limits, and 1e-6 of each
-    tensor's scale where |gradient| > 1e-5); the running statistics their
-    mean. Then bf16 steps (1 warm-up, 3 counted) for ms per step per rank
-    and the GAT launches."""
+    of B=256 on the card over gloo. One float32 eager step: each rank's own
+    gradient equals the single-process step on its batch, and the updated
+    parameters the average-then-Adam of those two steps (phase 8's limits,
+    and 1e-6 of each tensor's scale where |gradient| > 1e-5); the running
+    statistics their mean. Then three more float32 steps, captured
+    (warm-up, capture, replay) against eager, bitwise on each rank under
+    deterministic algorithms. Then bf16 steps, eager (1 warm-up, 3
+    counted) and captured (the warm-up, the capture, 3 counted replays):
+    ms per step per rank, host launch calls, capture seconds, peak memory,
+    the all-reduce calls per step and the GAT launches counted on the card.
+    Then the same step on a one-rank NCCL group (_rank_nccl): its
+    all-reduce captured inside the graph, bitwise against eager."""
     import torch
     from graphvqa_tpu_torch.config import gat_config
     from graphvqa_tpu_torch.train.train_state import create_train_state
@@ -2304,9 +2505,9 @@ def phase_dp(dev):
     loss = (refs[0]["loss"] + refs[1]["loss"]) / 2
     ranks = run_ranks(2, [
         dict(kind="check", name="dp_check", data=2, edge=1, cfg=cfg32,
-             batch=Bd, seed=300),
+             batch=Bd, seed=300, captured=True),
         dict(kind="time", name="dp_time", data=2, edge=1, cfg=cfg, batch=Bd,
-             seed=310, warmup=True, steps=3)])
+             seed=310, warmup=True, steps=3, captured=True)])
     lines = []
     for d, got in enumerate(ranks["dp_check"]):
         ref = dict(refs[d], params=params, stats=stats, loss=loss)
@@ -2328,10 +2529,62 @@ def phase_dp(dev):
         log(f"[multi dp] f32 B={Bd} per rank, rank {d} against one process "
             f"(its own gradient before the reduce; the params against the "
             f"average-then-Adam): {line}")
+    for d, got in enumerate(ranks["dp_check"]):
+        if got["captured"]["all_reduces"] != {"eager": [1, 1, 1],
+                                              "captured": [1, 1, 1]}:
+            fail(f"multi dp rank {d}: dist.all_reduce calls per step "
+                 f"{got['captured']['all_reduces']}, expected 1 each")
+        log(f"[multi dp] f32 B={Bd} rank {d}, 3 more steps captured against "
+            f"eager under deterministic algorithms: {_capture_held(got)}")
     launches = _timing_line(f"multi dp bf16 B={Bd} per rank",
                             ranks["dp_time"], gat_rounds(cfg))
+    nccl = run_ranks(1, [dict(kind="nccl", name="dp_nccl", cfg32=cfg32,
+                              cfg=cfg, batch=Bd, seed=320, steps=3)],
+                     backend="nccl")["dp_nccl"][0]
+    if nccl["backend"] != "nccl":
+        fail(f"multi nccl: the world group's backend is {nccl['backend']}")
+    reduces = nccl["check"]["all_reduces"]
+    if reduces != {"eager": [1, 1, 1], "captured": [1, 1, 0]}:
+        fail(f"multi nccl: dist.all_reduce calls per step {reduces}, "
+             f"expected one per eager step and none on the replay (the "
+             f"all-reduce inside the graph)")
+    rounds = gat_rounds(cfg)
+    parts = []
+    for mode in ("captured", "eager"):
+        run = nccl[mode]
+        n = len(run["times"])
+        if run["launches"] != (rounds * n, rounds * n):
+            fail(f"multi nccl {mode}: GAT launches {run['launches']} in "
+                 f"{n} steps, expected {rounds} each per step")
+        if not all(map(math.isfinite, run["losses"])):
+            fail(f"multi nccl {mode}: non-finite loss {run['losses']}")
+        if run["reduces"] != [0 if mode == "captured" else 1] * n:
+            fail(f"multi nccl {mode}: dist.all_reduce calls per step "
+                 f"{run['reduces']}")
+        parts.append(f"{mode} ms/step "
+                     f"{', '.join(f'{t * 1e3:.2f}' for t in run['times'])}"
+                     f", dist.all_reduce calls per step {run['reduces']}"
+                     + (f", capture {run['capture_s']:.3f}s"
+                        if "capture_s" in run else ""))
+    log(f"[multi nccl] one rank, the world group given to the mesh: f32 "
+        f"B={Bd}, 3 steps captured against eager: "
+        f"{_capture_held(nccl['check'])} (the capture call issued the "
+        f"all-reduce into the graph, the replay none from Python); bf16 "
+        f"B={Bd}: {'; '.join(parts)}; GAT launches {rounds} + {rounds} per "
+        f"step counted on the card; peak {nccl['peak']}")
     log(f"[multi dp] phase {time.perf_counter() - t0:.1f}s")
     return launches
+
+
+def _capture_held(rec):
+    """The text of a hold_dp_capture result."""
+    c = rec["captured"] if "captured" in rec else rec
+    return (f"metrics, parameters, own gradients, Adam moments and running "
+            f"statistics bitwise; losses "
+            f"{', '.join(f'{v:.7f}' for v in c['losses'])}; (warm-ups, "
+            f"captures, replays) {c['graphs']}; dist.all_reduce calls per "
+            f"step {c['all_reduces']}; capture {c['capture_s']:.3f}s; peak "
+            f"{c['peak']}")
 
 
 def phase_edge(dev):
@@ -2391,27 +2644,47 @@ def _run_torchrun(nproc, args, name, timeout=600):
                     timeout)
 
 
+def _rank_graphs(text, what, nproc, tag):
+    """Each rank's (shapes, warm-ups, captures, replays) of the CLI's
+    'step graphs (<what>, rank r)' lines; fails unless every rank captured
+    and replayed."""
+    got = []
+    for r in range(nproc):
+        where = what if nproc == 1 else f"{what}, rank {r}"
+        calls = tuple(int(v) for v in _last_match(
+            rf"step graphs \({re.escape(where)}\): (\d+) shapes, (\d+) "
+            rf"warm-ups, (\d+) captures \([\d.]+s\), (\d+) replays", text,
+            f"{where} step graphs"))
+        if calls[2] < 1 or calls[3] < 1:
+            fail(f"CLI {tag}: {where}: (shapes, warm-ups, captures, "
+                 f"replays) {calls}, expected a capture and a replay")
+        got.append(calls)
+    return got
+
+
 def phase_cli_dist(data):
     """13d: the CLI under torchrun on phase 9's val split (1,024
     questions): one rank on nccl (an epoch of 2 steps of B=512 with a
     validation, then --resume --evaluate with the dumps), and
-    --data-parallel 2 with two ranks sharing the card over gloo (an epoch of
-    2 steps of B=256 per rank, then --evaluate over both ranks' shards,
-    whose gathered dump must hold every val question once)."""
+    --data-parallel 2 with two ranks sharing the card over gloo (two epochs
+    of 2 steps of B=256 per rank, each with a 1-batch validation, then
+    --evaluate over both ranks' shards, whose gathered dump must hold every
+    val question once). Each rank of the data-parallel run must capture
+    and replay its train and eval steps (the CLI's 'step graphs' lines)."""
     t0 = time.perf_counter()
     root = data["data"]
     launches = [0, 0]
-    for tag, nproc, bsz, extra in (
-            ("nccl", 1, B, []),
-            ("gloo-dp2", 2, B // 2, ["--data-parallel", "2",
-                                     "--dist-backend", "gloo"])):
+    for tag, nproc, bsz, epochs, extra in (
+            ("nccl", 1, B, 1, []),
+            ("gloo-dp2", 2, B // 2, 2, ["--data-parallel", "2",
+                                        "--dist-backend", "gloo"])):
         out = SMOKE_DIR / f"cli_{tag}"
         common = ["--data-root", str(root), "--split", "val_balanced",
                   "--val-split", "val_balanced", "--batch-size", str(bsz),
                   "--print-freq", "1", "--output_dir", str(out)] + extra
         train_out, train_s = _run_torchrun(nproc, common + [
-            "--epochs", "1", "--validate-every", "1", "--fast-validate", "1"],
-            f"cli_{tag}_train")
+            "--epochs", str(epochs), "--validate-every", "1",
+            "--fast-validate", "1"], f"cli_{tag}_train")
         f_tr, b_tr = (int(v) for v in _last_match(
             r"kernel launches \(train epoch 0\): gat_round (\d+), "
             r"gat_round_backward (\d+)", train_out, "train launches"))
@@ -2437,11 +2710,21 @@ def phase_cli_dist(data):
         res = _last_match(r"val_balanced (\{.*\})", eval_out, "evaluate result")
         launches[0] += f_tr
         launches[1] += b_tr
+        graphs = ""
+        if nproc > 1:
+            train_calls, eval_calls = (
+                _rank_graphs(train_out, f"{what} epoch {epochs - 1}", nproc,
+                             tag) for what in ("train", "validate"))
+            evaluate = re.findall(r"step graphs \(evaluate .*", eval_out)
+            graphs = (f"; per rank (shapes, warm-ups, captures, replays): "
+                      f"train {train_calls}, validation {eval_calls}; "
+                      f"evaluate {evaluate}")
         log(f"[multi cli {tag}] torchrun --nproc_per_node {nproc}, B={bsz} "
-            f"per rank: train losses {', '.join(f'{v:.5f}' for v in losses)},"
-            f" rank 0's launches gat_round {f_tr} gat_round_backward {b_tr}; "
-            f"evaluate: {len(dump)} results and {len(atts)} attention rows "
-            f"gathered, each val question once, {res}; processes "
+            f"per rank, {epochs} epoch(s): train losses "
+            f"{', '.join(f'{v:.5f}' for v in losses)}, rank 0's launches in "
+            f"epoch 0 gat_round {f_tr} gat_round_backward {b_tr}; evaluate: "
+            f"{len(dump)} results and {len(atts)} attention rows gathered, "
+            f"each val question once, {res}{graphs}; processes "
             f"{train_s:.1f}s + {eval_s:.1f}s")
     log(f"[multi cli] phase {time.perf_counter() - t0:.1f}s")
     return launches

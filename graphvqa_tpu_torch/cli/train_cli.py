@@ -298,14 +298,22 @@ def _launches():
     return launch_counts()
 
 
-def _print_graphs(what, step) -> None:
-    """The step's CUDA-graph calls so far (nothing for an eager step)."""
+def _print_graphs(what, step, mesh) -> None:
+    """The step's CUDA-graph calls so far (nothing for an eager step), on
+    several ranks each rank's, gathered to rank 0 (every rank calls this
+    at the same points, and its steps capture alike)."""
+    from graphvqa_tpu_torch.parallel.collectives import all_gather_host
     graphs = getattr(step, "graphs", None)
-    if graphs is not None:
-        print(f"step graphs ({what}): {len(graphs.graphs)} shapes, "
-              f"{graphs.warm_ups} warm-ups, {graphs.captures} captures "
-              f"({sum(graphs.capture_seconds.values()):.2f}s), "
-              f"{graphs.replays} replays")
+    if graphs is None:
+        return
+    calls = (len(graphs.graphs), graphs.warm_ups, graphs.captures,
+             sum(graphs.capture_seconds.values()), graphs.replays)
+    ranks = (all_gather_host(calls, mesh.world_group) if mesh.size > 1
+             else [calls])
+    for r, (shapes, warm_ups, captures, seconds, replays) in enumerate(ranks):
+        where = what if mesh.size == 1 else f"{what}, rank {r}"
+        print(f"step graphs ({where}): {shapes} shapes, {warm_ups} warm-ups, "
+              f"{captures} captures ({seconds:.2f}s), {replays} replays")
 
 
 def _print_launches(what, before):
@@ -419,9 +427,11 @@ def main(args):
     ctx_generator = torch.Generator(device=dev).manual_seed(
         data_seed(args.seed + 2, mesh))
     fast_validate = args.fast_validate or None
-    # one process replays CUDA graphs of its steps; several run them
-    # eagerly (their collectives go through gloo, which no graph can hold)
-    capture = mesh.size == 1
+    # the steps replay CUDA graphs per batch shape, under data parallelism
+    # too (train/graphs.py, parallel/data_parallel.py); with an edge axis
+    # they are eager: their forward and backward hold the edge group's
+    # collectives, which gloo cannot run inside a graph
+    capture = E == 1
     eval_step = (make_edge_eval_step(model, cfg, mesh) if E > 1
                  else make_eval_step(model, cfg, capture=capture))
     val_ds = GQADataset(programs_path(args.val_split),
@@ -456,7 +466,7 @@ def main(args):
                 generator=ctx_generator, mesh=mesh)
             print(split, res)
             _print_launches(f"evaluate {split}", before)
-            _print_graphs(f"evaluate {split}", eval_step)
+            _print_graphs(f"evaluate {split}", eval_step, mesh)
         return
 
     train_ds = GQADataset(programs_path(args.split), scenes_path(args.split),
@@ -468,7 +478,8 @@ def main(args):
           f"{time.perf_counter() - t0:.1f}s")
 
     K = max(args.steps_per_dispatch, 1)
-    train_step = (make_dp_train_step(model, cfg, mesh, steps_per_dispatch=K)
+    train_step = (make_dp_train_step(model, cfg, mesh, steps_per_dispatch=K,
+                                     capture=capture)
                   if mesh.size > 1 else
                   make_train_step(model, cfg, steps_per_dispatch=K,
                                   capture=capture))
@@ -509,7 +520,7 @@ def main(args):
                        for k in collate_stats}
         print(f"collate layout stats (this epoch): {epoch_stats}")
         _print_launches(f"train epoch {epoch}", before)
-        _print_graphs(f"train epoch {epoch}", train_step)
+        _print_graphs(f"train epoch {epoch}", train_step, mesh)
         if (epoch + 1) % args.validate_every == 0:
             before = _launches()
             res = validate(eval_step, eval_batches(val_ds), cfg,
@@ -519,7 +530,7 @@ def main(args):
                            generator=ctx_generator, mesh=mesh)
             print(args.val_split, res)
             _print_launches(f"validate epoch {epoch}", before)
-            _print_graphs(f"validate epoch {epoch}", eval_step)
+            _print_graphs(f"validate epoch {epoch}", eval_step, mesh)
         if mesh.is_main:
             save_checkpoint(out_dir / "ckpt", state)
             print(f"checkpoint saved: {out_dir / 'ckpt'} (epoch {epoch})")

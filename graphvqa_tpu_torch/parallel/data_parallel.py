@@ -24,11 +24,17 @@ aligns their shapes first (``align_dense_group``); here every rank holds its
 own batch at its own shapes, so nothing is aligned (``core/packing.py:
 repack_dense`` is kept as the layout tool it calls).
 
-The step stays eager, with the edge-sharded one: its all-reduce (and the
-edge path's assemblies) go through gloo, which a CUDA graph cannot hold, so
-it calls ``forward_backward`` and ``apply_gradients`` directly and never
-``make_train_step``'s graphs. On cards of their own, NCCL's collectives
-could be captured (ROADMAP).
+A step makes one collective: the gradients, the running statistics and the
+step's metrics go through one all-reduce in one float32 buffer
+(:class:`StepReduce`), as JAX's ``shard_map`` step reduces them inside one
+program. On the card the step replays CUDA graphs per batch shape, as
+``make_train_step`` does (``train/graphs.py``): over gloo, graph A
+(forward, backward, the buffer packed), the all-reduce on the host, graph B
+(the buffer unpacked, Adam, the statistics and metrics written); over NCCL
+one graph with the all-reduce inside it, JAX's single dispatch. With an
+edge axis the step stays eager: its forward and backward hold the edge
+group's collectives (``parallel/edge_sharded.py``), which gloo cannot run
+inside a graph.
 """
 from __future__ import annotations
 
@@ -40,8 +46,8 @@ import torch.distributed as dist
 from graphvqa_tpu_torch.config import Config
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.models.pipeline import PipelineModel
-from graphvqa_tpu_torch.parallel.collectives import psum_scalars
 from graphvqa_tpu_torch.parallel.mesh import Mesh
+from graphvqa_tpu_torch.train import loop
 from graphvqa_tpu_torch.train.loop import forward_backward, multi_step
 from graphvqa_tpu_torch.train.metrics import SCAN_COUNT_KEYS
 from graphvqa_tpu_torch.train.train_state import TrainState
@@ -53,63 +59,118 @@ def running_stats(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
             if n.endswith(("running_mean", "running_var"))}
 
 
-def reduce_gradients(model: torch.nn.Module, mesh: Mesh
-                     ) -> Dict[str, torch.Tensor]:
-    """Each parameter's gradient summed over the world and divided by the
-    data ranks, a missing one as zeros; the running statistics replaced by
-    their mean over the world (in place). One all-reduce; ``.grad`` is left
-    as it is."""
-    params = list(model.named_parameters())
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad
-             for _, p in params]
-    if mesh.world_group is None:
-        return {n: g for (n, _), g in zip(params, grads)}
-    stats = list(running_stats(model).values())
-    flat = torch.cat([t.reshape(-1).float() for t in grads + stats])
-    dist.all_reduce(flat, group=mesh.world_group)
-    n_grad = sum(g.numel() for g in grads)
-    flat[:n_grad] /= mesh.data
-    flat[n_grad:] /= mesh.size
-    out, at = {}, 0
-    for (n, p), g in zip(params, grads):
-        out[n] = flat[at:at + g.numel()].view_as(p)
-        at += g.numel()
-    with torch.no_grad():
-        for s in stats:
+class StepReduce:
+    """A step's one all-reduce over the mesh's world group. :meth:`pack`
+    writes every parameter's gradient (a missing one as zeros), every
+    running statistic and the step's metrics into one float32 buffer,
+    :meth:`all_reduce` sums it, :meth:`unpack` reads it back:
+
+      * the gradients divided by the data ranks (the edge ranks' shares of
+        one data rank sum to its gradient);
+      * the running statistics divided by every rank, written in place;
+      * ``edge_count`` summed over every rank (each edge rank counts its own
+        edges), the other counts (``SCAN_COUNT_KEYS``) divided by the edge
+        ranks (alike on them), the rest divided by every rank; each cast
+        back to its own dtype. float32 keeps counts exact below 2**24.
+
+    The buffer is made at the first pack, outside any capture (a step's
+    first call at a batch shape is its eager warm-up), and stays the same
+    tensor: a CUDA graph holds its address, and it lies outside the graphs'
+    pool. A world group of None is this process alone: the all-reduce is
+    the identity."""
+
+    def __init__(self, model: torch.nn.Module, mesh: Mesh):
+        self.mesh = mesh
+        self.params = list(model.named_parameters())
+        self.stats = list(running_stats(model).values())
+        self.n_grad = sum(p.numel() for _, p in self.params)
+        self.n_stat = sum(s.numel() for s in self.stats)
+        self.flat: Optional[torch.Tensor] = None
+        self.metric_dtypes: Dict[str, torch.dtype] = {}
+
+    @torch.no_grad()
+    def pack(self, metrics: Dict[str, torch.Tensor]) -> None:
+        if self.flat is None:
+            self.metric_dtypes = {k: v.dtype for k, v in metrics.items()}
+            self.flat = torch.empty(
+                self.n_grad + self.n_stat + len(metrics),
+                dtype=torch.float32, device=self.params[0][1].device)
+        elif metrics.keys() != self.metric_dtypes.keys():
+            raise ValueError(f"the step's metrics {sorted(metrics)} differ "
+                             f"from its first step's "
+                             f"{sorted(self.metric_dtypes)}")
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for _, p in self.params]
+        torch.cat([t.reshape(-1).float() for t in grads + self.stats]
+                  + [metrics[k].reshape(1).float()
+                     for k in self.metric_dtypes], out=self.flat)
+
+    def all_reduce(self) -> None:
+        if self.mesh.world_group is not None:
+            dist.all_reduce(self.flat, group=self.mesh.world_group)
+
+    @torch.no_grad()
+    def unpack(self):
+        """-> (reduced gradient by parameter name, a view of the buffer;
+        the reduced metrics); the running statistics are written."""
+        mesh, flat = self.mesh, self.flat
+        flat[:self.n_grad].div_(mesh.data)
+        flat[self.n_grad:self.n_grad + self.n_stat].div_(mesh.size)
+        grads, at = {}, 0
+        for n, p in self.params:
+            grads[n] = flat[at:at + p.numel()].view_as(p)
+            at += p.numel()
+        for s in self.stats:
             s.copy_(flat[at:at + s.numel()].view_as(s))
             at += s.numel()
-    return out
-
-
-def reduce_metrics(metrics: Dict[str, torch.Tensor], mesh: Mesh
-                   ) -> Dict[str, torch.Tensor]:
-    """The step's metrics over the mesh in one all-reduce: counts summed
-    over the data ranks, the rest meaned, and ``edge_count`` summed over
-    every rank (each edge rank counts its own edges)."""
-    if mesh.world_group is None:
-        return dict(metrics)
-    summed = psum_scalars(metrics, mesh.world_group)
-    out = {}
-    for k, v in summed.items():
-        if k == "edge_count":
-            pass
-        elif k in SCAN_COUNT_KEYS:     # alike on the edge ranks
-            v = v / mesh.edge
-        else:
-            v = v / mesh.size
-        out[k] = v.to(metrics[k].dtype)
-    return out
+        metrics = {}
+        for k, dtype in self.metric_dtypes.items():
+            v = flat[at]
+            if k in SCAN_COUNT_KEYS and k != "edge_count":
+                v = v / mesh.edge
+            elif k not in SCAN_COUNT_KEYS:
+                v = v / mesh.size
+            metrics[k] = v.to(dtype)
+            at += 1
+        return grads, metrics
 
 
 def make_dp_train_step(model: PipelineModel, cfg: Config, mesh: Mesh,
-                       steps_per_dispatch: int = 1) -> Callable:
+                       steps_per_dispatch: int = 1,
+                       capture: bool = True) -> Callable:
     """``train_step(state, batch, generator, ctx_generator=None)`` of this
     rank, with make_train_step's signature and metrics; the metrics come
     back reduced over the mesh. Seed the generators by the data rank
     (``parallel/mesh.py:data_seed``), never by the global rank: the edge
     ranks of a data index must draw alike. ``steps_per_dispatch`` K > 1
-    takes a list of K batches and runs K steps in order."""
+    takes a list of K batches and runs K steps in order (K replays on the
+    card). On the card each step replays its batch shape's graphs (module
+    doc; ``capture=False`` keeps the eager step, the graphs are
+    ``train_step.graphs``); with an edge axis it is eager, since its
+    forward and backward hold the edge group's collectives. A replayed
+    step's metrics and ``.grad`` are its graphs' outputs, which the next
+    step overwrites, as ``make_train_step``'s are."""
     loss_scale = 1.0 / mesh.edge
+    reduce = StepReduce(model, mesh)
+    graphs = loop._graphs(model, capture and mesh.edge == 1)
+    # NCCL's all-reduce is captured into the graph; gloo's runs on the
+    # host between two graphs
+    in_graph = (mesh.world_group is None
+                or dist.get_backend(mesh.world_group) == "nccl")
+
+    def first(batch: QABatch, generator, ctx_generator):
+        """Forward, backward, the buffer packed -> this rank's own
+        gradients."""
+        metrics = forward_backward(model, cfg, batch, generator,
+                                   ctx_generator, loss_scale=loss_scale)
+        reduce.pack(metrics)
+        return {n: p.grad for n, p in model.named_parameters()}
+
+    def second(state: TrainState):
+        """The reduced buffer unpacked, Adam -> the reduced metrics."""
+        grads, metrics = reduce.unpack()
+        state.update(grads)
+        return metrics
 
     def train_step(state: TrainState, batch: QABatch,
                    generator: torch.Generator,
@@ -118,13 +179,35 @@ def make_dp_train_step(model: PipelineModel, cfg: Config, mesh: Mesh,
             raise ValueError("an edge axis needs batches from "
                              "edge_sharded.prepare_dp_edge_batch")
         lr = state.current_lr()
-        metrics = forward_backward(model, cfg, batch, generator,
-                                   ctx_generator, loss_scale=loss_scale)
-        state.apply_gradients(reduce_gradients(model, mesh))
-        metrics = reduce_metrics(metrics, mesh)
-        metrics["lr"] = lr
-        return state, metrics
+        state.prepare()
+        if graphs is None:
+            first(batch, generator, ctx_generator)
+            reduce.all_reduce()
+            metrics = second(state)
+        else:
+            def graph_a(b):
+                return first(b, generator, ctx_generator)
 
+            def whole(b):
+                own = graph_a(b)
+                reduce.all_reduce()
+                return own, second(state)
+
+            own, metrics = graphs(
+                whole if in_graph else (graph_a, lambda: second(state)), batch,
+                (generator, ctx_generator),
+                bind=(state, state.opt_state, state.opt_state["count"],
+                      state.lr_tensor),
+                host=None if in_graph else reduce.all_reduce)
+            # this rank's own gradient, before the reduce (module doc)
+            for n, p in model.named_parameters():
+                p.grad = own[n]
+        state.step += 1
+        return state, dict(metrics, lr=lr)
+
+    train_step.graphs = graphs
     if steps_per_dispatch <= 1:
         return train_step
-    return multi_step(train_step, steps_per_dispatch)
+    run = multi_step(train_step, steps_per_dispatch)
+    run.graphs = graphs
+    return run

@@ -43,9 +43,27 @@ so replays count as eager calls do. A replay runs no Python, so
 ``gat_round_backward.counter`` is pointed at the replayed graph's counter,
 to be read after the replay.
 
-Only single-process steps are captured. The data-parallel and edge-sharded
-steps (``parallel/``) run collectives through gloo, which a CUDA graph
-cannot hold, and stay eager: a batch with an edge group is refused here.
+A body may be a sequence of segments with a host call between each two:
+the data-parallel step (``parallel/data_parallel.py``) is graph A (forward,
+backward, gradients packed into one buffer), ``dist.all_reduce`` of that
+buffer through gloo, which no graph can hold, then graph B (the reduced
+buffer unpacked, Adam). Each segment is captured into a graph of its own
+in the shared pool; the key keeps one warm-up and one capture. Streams:
+a warm-up runs every segment and the host calls on the side stream, which
+waits for the current stream before and is waited for after; a capture
+records each segment on the side stream and runs nothing; a replay
+launches each graph on the current stream and issues the host calls there
+too. gloo's all-reduce of a CUDA tensor waits for the current stream's
+work (graph A) before it copies the buffer to the host, and makes the
+current stream wait for its copy back before graph B is launched, so no
+event of this module's own is needed. The buffer between segments is made
+outside the pool, so graph B reads no pool memory that it did not write
+itself. Over NCCL the all-reduce is captured inside the one graph.
+
+The edge-sharded steps run collectives inside their forward and backward
+(``parallel/collectives.py:AssembleRows``), through gloo, between no
+segments of their own: they stay eager, and a batch with an edge group is
+refused here.
 """
 from __future__ import annotations
 
@@ -139,12 +157,23 @@ def _tensors(obj) -> list:
     return out
 
 
+def _chain(segments: Sequence[Callable[[], Any]],
+           host: Optional[Callable[[], None]]):
+    """Each of ``segments`` in order with ``host()`` between each two -> the
+    first's outputs, or with several segments a tuple of each one's."""
+    outs = [segments[0]()]
+    for segment in segments[1:]:
+        host()
+        outs.append(segment())
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
 @dataclasses.dataclass
 class _Graph:
-    """One key's graph: its static batch, its replay and its backward
-    kernel's counter."""
+    """One key's graphs: its static batch, one replay per segment and its
+    backward kernel's counter."""
     static: Any = None
-    replay: Optional[Callable[[], Any]] = None
+    replays: Optional[list] = None
     backward_counter: Optional[torch.Tensor] = None
 
 
@@ -162,18 +191,24 @@ class StepGraphs:
         self.warm_ups = self.captures = self.replays = 0
         self.capture_seconds: Dict[tuple, float] = {}
 
-    def __call__(self, body: Callable[[Any], Any], batch,
+    def __call__(self, body, batch,
                  generators: Sequence[Optional[torch.Generator]] = (),
-                 bind: Sequence[Any] = ()):
+                 bind: Sequence[Any] = (),
+                 host: Optional[Callable[[], None]] = None):
         """``body(batch)`` through the key's graph -> its outputs (the
         graph's own tensors on a replay: module doc).
+        ``body`` may be a sequence of segments instead: ``body[0](batch)``,
+        then ``host()`` and ``body[1]()``, and so on, each segment a graph
+        of its own and ``host`` run between them on every call -> a tuple
+        of each segment's outputs.
         ``bind``: the objects whose tensors the body reads (the train
         state); ``generators``: those it draws from (None entries skipped)."""
         if batch.graphs.edge_group is not None:
             raise ValueError(
-                "an edge-sharded batch runs its collectives through gloo, "
-                "which a CUDA graph cannot hold: use the parallel/ steps, "
-                "which stay eager")
+                "an edge-sharded batch runs collectives inside its forward "
+                "and backward, through gloo, which a CUDA graph cannot "
+                "hold: the edge steps of parallel/ stay eager")
+        segments = (body,) if callable(body) else tuple(body)
         generators = tuple(g for g in generators if g is not None)
         bound = tuple(bind) + generators
         if len(bound) != len(self.bound) or any(
@@ -186,35 +221,38 @@ class StepGraphs:
         if entry is None:
             self.graphs[key] = _Graph()
             self.warm_ups += 1
-            return self._warm_up(body, batch)
-        if entry.replay is None:
-            self._capture(entry, key, body, batch, generators)
+            return self._warm_up(segments, batch, host)
+        if entry.replays is None:
+            self._capture(entry, key, segments, batch, generators)
         else:
             for dst, src in zip(_tensors(entry.static), _tensors(batch)):
                 dst.copy_(src)
-        out = entry.replay()
+        out = _chain(entry.replays, host)
         self.replays += 1
         if entry.backward_counter is not None:
             gr.gat_round_backward.counter = entry.backward_counter
         return out
 
-    def _warm_up(self, body, batch):
+    def _warm_up(self, segments, batch, host):
+        run = [lambda: segments[0](batch), *segments[1:]]
         device = batch.questions.device
         if device.type != "cuda":
-            return body(batch)
+            return _chain(run, host)
         stream, current = _side_stream(device), torch.cuda.current_stream()
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            out = body(batch)
+            out = _chain(run, host)
         current.wait_stream(stream)
         return out
 
-    def _capture(self, entry, key, body, batch, generators):
+    def _capture(self, entry, key, segments, batch, generators):
         entry.static = map_tensors(torch.clone, batch)
         counter = gr.gat_round_backward.counter
+        device = batch.questions.device
         t0 = time.perf_counter()
-        entry.replay = self.capture_fn(lambda: body(entry.static),
-                                       generators, batch.questions.device)
+        run = [lambda: segments[0](entry.static), *segments[1:]]
+        entry.replays = [self.capture_fn(fn, generators, device)
+                         for fn in run]
         self.capture_seconds[key] = time.perf_counter() - t0
         self.captures += 1
         if gr.gat_round_backward.counter is not counter:

@@ -47,11 +47,12 @@ from graphvqa_tpu.train.train_state import (
     create_train_state as jax_create_train_state)
 from graphvqa_tpu_torch.models.convert import from_jax_variables
 from graphvqa_tpu_torch.models.pipeline import PipelineModel, init_params
-from graphvqa_tpu_torch.train.graphs import StepGraphs, _tensors, batch_key
+from graphvqa_tpu_torch.train.graphs import StepGraphs, batch_key
 from graphvqa_tpu_torch.train.loop import (
     make_eval_step, make_train_step, train_one_epoch)
 from graphvqa_tpu_torch.train.train_state import (
     ADAM_EPS, B1, B2, TrainState, create_train_state)
+from tests.torch_port_dist import FakeCapture
 from tests.torch_port_helpers import (
     jax_variables, port_batch, port_model, port_model_config,
     random_qa_batch, tiny_model_config)
@@ -322,30 +323,6 @@ def test_train_one_epoch_keeps_each_steps_metrics(monkeypatch):
 
 
 # --- (d) the graph cache --------------------------------------------------------
-
-class FakeCapture:
-    """A capture function for the CPU: the 'graph' reruns the body and
-    writes its results into the tensors of its first run, as a replay
-    writes a graph's static outputs (capture itself runs nothing)."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __call__(self, fn, generators, device):
-        self.calls.append(tuple(generators))
-        static = []
-
-        def replay():
-            out = fn()
-            if not static:
-                static.append(out)
-            else:
-                for dst, src in zip(_tensors(static[0]), _tensors(out)):
-                    dst.copy_(src)
-            return static[0]
-
-        return replay
-
 
 def _inject(monkeypatch, capture):
     """make_train_step / make_eval_step build their graphs with

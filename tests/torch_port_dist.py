@@ -9,10 +9,14 @@ on its own (data, edge) mesh of the world; every rank saves its results to
 'validate'), ``data`` and ``edge`` and the kind's inputs, all on the CPU:
 
   * train: ``cfg`` (the port's Config), ``state_dict``, ``lr``, ``wd``,
-    ``batches`` (per data rank, a list of K batches), optional LCGN
-    ``noise``; the result: parameters, Adam moments, running statistics,
-    the step's metrics, this rank's own gradients and its shard's
-    edges_per_graph;
+    ``batches`` (per data rank, a list of batches), optional ``k`` (steps
+    per call, default every batch in one call), optional ``capture``
+    (the step replays graphs through :class:`FakeCapture`, installed in
+    the rank), optional LCGN ``noise``; the result: parameters, Adam
+    moments, running statistics, the last call's metrics and every call's,
+    this rank's own gradients, its shard's edges_per_graph, each call's
+    ``dist.all_reduce`` calls and the step graphs' (warm-ups, captures,
+    replays);
   * eval: ``cfg``, ``state_dict``, ``batch``; the eval step's outputs;
   * validate: ``cfg``, ``state_dict``, ``data_root``, ``split``,
     ``batch_size`` and ``out`` (a directory for rank 0's dumps); the
@@ -54,6 +58,38 @@ def spawn(world: int, workdir, plan, device: str = "cpu") -> list:
     return collect(start(world, workdir, plan, device))
 
 
+class FakeCapture:
+    """A capture function for the CPU: the 'graph' reruns the body and
+    writes its results into the tensors of its first run, as a replay
+    writes a graph's static outputs (capture itself runs nothing)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, fn, generators, device):
+        from graphvqa_tpu_torch.train.graphs import _tensors
+        self.calls.append(tuple(generators))
+        static = []
+
+        def replay():
+            out = fn()
+            if not static:
+                static.append(out)
+            else:
+                for dst, src in zip(_tensors(static[0]), _tensors(out)):
+                    dst.copy_(src)
+            return static[0]
+
+        return replay
+
+
+def fake_graphs(model, on):
+    """``train/loop.py:_graphs`` with :class:`FakeCapture`: the steps build
+    their graphs wherever they are asked to capture (here, on the CPU)."""
+    from graphvqa_tpu_torch.train.graphs import StepGraphs
+    return StepGraphs(FakeCapture()) if on else None
+
+
 def _rank_main(rank, world, workdir, device):
     torch.set_num_threads(1)
     workdir = pathlib.Path(workdir)
@@ -88,6 +124,7 @@ def _train(case, dev):
     from graphvqa_tpu_torch.parallel.edge_sharded import (
         make_dp_edge_train_step, prepare_dp_edge_batch)
     from graphvqa_tpu_torch.parallel.mesh import data_seed, make_mesh
+    from graphvqa_tpu_torch.train import loop
     from graphvqa_tpu_torch.train.train_state import create_train_state
     mesh = make_mesh(case["data"], case["edge"])
     model = _model(case, dev)
@@ -97,13 +134,36 @@ def _train(case, dev):
     if mesh.edge > 1:
         batches = prepare_dp_edge_batch(batches, mesh)
     batches = [b.to(dev) for b in batches]
-    K = len(batches)
-    step = make_dp_edge_train_step(model, case["cfg"], mesh,
-                                   steps_per_dispatch=K)
+    K = case.get("k", len(batches))
+    capture = case.get("capture", False)
+    graphs_fn = loop._graphs
+    loop._graphs = fake_graphs if capture else graphs_fn
+    try:
+        step = make_dp_edge_train_step(model, case["cfg"], mesh,
+                                       steps_per_dispatch=K,
+                                       capture=capture)
+    finally:
+        loop._graphs = graphs_fn
     gen = torch.Generator(device=dev).manual_seed(data_seed(0, mesh))
     ctx = torch.Generator(device=dev).manual_seed(data_seed(1, mesh))
     before = launch_counts()
-    _, metrics = step(state, batches if K > 1 else batches[0], gen, ctx)
+    all_reduce, reduces = dist.all_reduce, []
+
+    def counted(*args, **kwargs):
+        reduces[-1] += 1
+        return all_reduce(*args, **kwargs)
+
+    dist.all_reduce = counted
+    calls = []
+    try:
+        for i in range(0, len(batches), K):
+            reduces.append(0)
+            group = batches[i:i + K]
+            _, metrics = step(state, group if K > 1 else group[0], gen, ctx)
+            calls.append({k: float(v) for k, v in metrics.items()})
+    finally:
+        dist.all_reduce = all_reduce
+    graphs = step.graphs
     return dict(
         params={n: _cpu(p) for n, p in model.named_parameters()},
         grads={n: None if p.grad is None else _cpu(p.grad)
@@ -111,7 +171,9 @@ def _train(case, dev):
         mu={n: _cpu(t) for n, t in state.opt_state["mu"].items()},
         nu={n: _cpu(t) for n, t in state.opt_state["nu"].items()},
         stats={n: _cpu(t) for n, t in state.batch_stats.items()},
-        metrics={k: float(v) for k, v in metrics.items()},
+        metrics=calls[-1], call_metrics=calls, all_reduces=reduces,
+        graphs=None if graphs is None else (
+            graphs.warm_ups, graphs.captures, graphs.replays),
         epg_loc=[b.graphs.edges_per_graph for b in batches],
         launches=tuple(n - b for n, b in zip(launch_counts(), before)))
 
