@@ -101,13 +101,24 @@ Phases, in order; any failure exits non-zero:
               world group, its all-reduce captured inside the one graph,
               bitwise against eager. (c) the edge-sharded step, B=512 at
               data 1 x edge 2: one f32 step against the single-process step
-              (phase 8's limits, with the ReLU pins), bf16 steps with the
-              epg_loc reached; then one step at data 2 x edge 2 on 4 ranks;
-              eager (its collectives inside the forward and backward run
-              through gloo, which no graph holds). (d) the CLI under
-              torchrun: one rank on nccl (an epoch, validation, --resume
-              --evaluate with the dumps) and --data-parallel 2 on two ranks
-              over gloo (two epochs), whose gathered dump holds every val
+              (phase 8's limits, with the ReLU pins); three f32 steps
+              captured (19 graphs a step, cut at each of gloo's collectives
+              in the forward and backward and at the step's all-reduce)
+              against eager, and an edge eval request (12 graphs) captured
+              against eager, bitwise on both ranks under deterministic
+              algorithms; bf16 steps and requests eager and captured side
+              by side (ms, host launch calls, the collectives per call held
+              to the eager step's in number and order, segments, capture
+              seconds, peak memory, GAT launches counted on the card, the
+              epg_loc reached); one step at data 2 x edge 2 on 4 ranks,
+              eager, then captured after its warm-up; then the edge step
+              and request on a one-rank NCCL group given as the mesh's
+              world and edge group, each one graph holding every
+              collective, bitwise against eager in f32 and timed in bf16.
+              (d) the CLI under torchrun: one rank on nccl (an epoch,
+              validation, --resume --evaluate with the dumps),
+              --data-parallel 2 and --edge-parallel 2 on two ranks over
+              gloo (two epochs each), whose gathered dumps hold every val
               question once and each of whose ranks captures and replays
               its train and eval steps. (e) convert_ckpt_cli on a
               reference-format checkpoint of the seeded full-width model,
@@ -144,6 +155,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -2148,10 +2160,25 @@ def _rank_check(rank, case):
     rec.update(pins=pins, epg_loc=batch.graphs.edges_per_graph)
     if case.get("captured"):
         del step
+        if case.get("relu_ref"):
+            # the ReLU hooks hold the check step's record only: the held
+            # steps start from a fresh model of the same seed
+            del state, model
+            torch.cuda.empty_cache()
+            model = full_model(cfg, dev)
+            state = create_train_state(model, lr=cfg.train.lr)
+            gen = torch.Generator(device=dev).manual_seed(data_seed(0, mesh))
+        tag = f"multi {case['name']} rank {rank}"
         batches = [qa_batch(cfg, case["batch"], seed=case["seed"] + 10 * i
-                            + mesh.data_rank).to(dev) for i in (1, 2, 3)]
+                            + mesh.data_rank) for i in (1, 2, 3)]
+        if mesh.edge > 1:
+            batches = prepare_dp_edge_batch(batches, mesh)
+        batches = [b.to(dev) for b in batches]
         rec["captured"] = hold_dp_capture(cfg, mesh, state, batches, gen,
-                                          f"multi {case['name']} rank {rank}")
+                                          tag)
+        if mesh.edge > 1:
+            rec["eval"] = hold_edge_eval_capture(cfg, mesh, model,
+                                                 batches[0], tag)
     torch.save(rec, MULTI_DIR / f"{case['name']}_rank{rank}.pt")
 
 
@@ -2165,28 +2192,64 @@ def dp_record(state, metrics):
     return rec
 
 
-def hold_dp_capture(cfg, mesh, state, batches, gen, tag):
-    """Three float32 steps of make_dp_train_step on ``batches``, eager and
-    then captured (warm-up, capture, replay) from the same state and
-    generator (rewound in place), under deterministic algorithms, the eager
-    run's cache freed before the capture: every step's metrics, the
-    parameters, this rank's own gradients, Adam's moments and the running
-    statistics, bitwise. Counts the Python calls of dist.all_reduce per
-    step (over NCCL the replays issue none: the all-reduce is inside the
-    graph). -> dict(graphs (warm-ups, captures, replays), all_reduces
-    {captured, eager}, capture_s, peak)"""
-    import torch
+@contextlib.contextmanager
+def counted_all_reduces(calls):
+    """Each Python call of dist.all_reduce appended to the list
+    ``calls[-1]`` as (op, shape, dtype), in call order."""
     import torch.distributed as dist
+    all_reduce = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        calls[-1].append((str(kwargs.get("op", dist.ReduceOp.SUM)),
+                          tuple(tensor.shape), str(tensor.dtype)))
+        return all_reduce(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield
+    finally:
+        dist.all_reduce = all_reduce
+
+
+def in_graph(mesh) -> bool:
+    """Whether the mesh's collectives run inside the step's graph (every
+    group NCCL) rather than on the host between two graphs (gloo)."""
+    import torch.distributed as dist
+    return all(dist.get_backend(g) == "nccl"
+               for g in (mesh.world_group, mesh.edge_group) if g is not None)
+
+
+def hold_collectives(mesh, eager, captured, tag):
+    """Fails unless each call of a captured step (warm-up, capture, then
+    replays) made the eager step's dist.all_reduce calls (``eager``, one
+    call's list of (op, shape, dtype)), in number and order: every call
+    through gloo, where each is a host call between two graphs; the
+    warm-up and the capture over NCCL, whose replays issue none."""
+    want = [eager] * min(len(captured), 2) + [
+        [] if in_graph(mesh) else eager] * (len(captured) - 2)
+    if captured != want:
+        fail(f"{tag}: the captured calls' dist.all_reduce calls "
+             f"{[len(c) for c in captured]} differ from the eager step's "
+             f"{len(eager)} in number or order (op, shape, dtype)")
+
+
+def hold_dp_capture(cfg, mesh, state, batches, gen, tag):
+    """Three float32 steps of make_dp_train_step on ``batches`` (edge
+    shares with an edge axis), eager and then captured (warm-up, capture,
+    replay) from the same state and generator (rewound in place), under
+    deterministic algorithms, the eager run's cache freed before the
+    capture: every step's metrics, the parameters, this rank's own
+    gradients, Adam's moments and the running statistics, bitwise. Holds
+    the Python calls of dist.all_reduce of each captured step to the eager
+    step's (hold_collectives: over NCCL the replay issues none, the
+    collectives are inside the graph). -> dict(graphs (warm-ups, captures,
+    replays), segments, all_reduces {captured, eager} per step, capture_s,
+    peak)"""
+    import torch
     from graphvqa_tpu_torch.parallel.data_parallel import make_dp_train_step
     rewind = rewind_point(state, (gen,))
-    all_reduce, runs, reduces = dist.all_reduce, {}, {}
-
-    def counted(*args, **kwargs):
-        reduces[mode][-1] += 1
-        return all_reduce(*args, **kwargs)
-
+    runs, reduces = {}, {}
     torch.use_deterministic_algorithms(True, warn_only=True)
-    dist.all_reduce = counted
     try:
         for mode in ("eager", "captured"):
             rewind()
@@ -2194,66 +2257,129 @@ def hold_dp_capture(cfg, mesh, state, batches, gen, tag):
             step = make_dp_train_step(state.model, cfg, mesh,
                                       capture=mode == "captured")
             metrics, reduces[mode] = [], []
-            for batch in batches:
-                reduces[mode].append(0)
-                _, m = step(state, batch, gen)
-                metrics.append({k: float(v) for k, v in m.items()})
+            with counted_all_reduces(reduces[mode]):
+                for batch in batches:
+                    reduces[mode].append([])
+                    _, m = step(state, batch, gen)
+                    metrics.append({k: float(v) for k, v in m.items()})
             torch.cuda.synchronize()
             runs[mode] = dp_record(state, metrics)
             graphs = step.graphs
             del step
     finally:
-        dist.all_reduce = all_reduce
         torch.use_deterministic_algorithms(False)
     calls = (graphs.warm_ups, graphs.captures, graphs.replays)
     if calls != (1, 1, 2):
-        fail(f"{tag}: the captured DP steps ran (warm-ups, captures, "
+        fail(f"{tag}: the captured steps ran (warm-ups, captures, "
              f"replays) {calls}, expected (1, 1, 2)")
+    hold_collectives(mesh, reduces["eager"][0], reduces["captured"], tag)
     cap, eag = runs["captured"], runs["eager"]
     keys = ("params", "grads", "stats", "mu", "nu")
     equal, diff = _outputs_diff([cap[k] for k in keys],
                                 [eag[k] for k in keys])
     if not equal or cap["metrics"] != eag["metrics"]:
-        fail(f"{tag}: captured DP steps against eager: metrics equal "
+        fail(f"{tag}: captured steps against eager: metrics equal "
              f"{cap['metrics'] == eag['metrics']}, state bitwise {equal} "
              f"(largest difference {diff:.3e})")
-    return dict(graphs=calls, all_reduces=reduces,
+    return dict(graphs=calls, segments=list(graphs.segments.values()),
+                all_reduces={k: [len(c) for c in v]
+                             for k, v in reduces.items()},
                 capture_s=sum(graphs.capture_seconds.values()),
                 losses=[m["total"] for m in cap["metrics"]],
                 peak=peak_gib(torch.device("cuda", 0)))
 
 
+def hold_edge_eval_capture(cfg, mesh, model, batch, tag):
+    """Three float32 requests of make_edge_eval_step on ``batch``, captured
+    (warm-up, capture, replay), each against the eager request bitwise
+    under deterministic algorithms; the dist.all_reduce calls of each held
+    to the eager request's (hold_collectives). -> dict(graphs, segments,
+    all_reduces {captured, eager} per request, capture_s)"""
+    import torch
+    from graphvqa_tpu_torch.parallel.edge_sharded import make_edge_eval_step
+    reduces = {"eager": [[]], "captured": []}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with counted_all_reduces(reduces["eager"]):
+            want = make_edge_eval_step(model, cfg, mesh, capture=False)(batch)
+        step = make_edge_eval_step(model, cfg, mesh)
+        outs = []
+        with counted_all_reduces(reduces["captured"]):
+            for _ in range(3):
+                reduces["captured"].append([])
+                outs.append(step(batch))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    graphs = step.graphs
+    calls = (graphs.warm_ups, graphs.captures, graphs.replays)
+    if calls != (1, 1, 2):
+        fail(f"{tag} eval: (warm-ups, captures, replays) {calls}, expected "
+             f"(1, 1, 2)")
+    hold_collectives(mesh, reduces["eager"][0], reduces["captured"],
+                     f"{tag} eval")
+    for i, got in enumerate(outs):
+        equal, diff = _outputs_diff(got, want)
+        if not equal:
+            fail(f"{tag} eval: captured request {i} against eager differs "
+                 f"by {diff:.3e}")
+    return dict(graphs=calls, segments=list(graphs.segments.values()),
+                all_reduces={k: [len(c) for c in v]
+                             for k, v in reduces.items()},
+                capture_s=sum(graphs.capture_seconds.values()))
+
+
 def _rank_nccl(rank, case):
-    """The DP step on a one-rank NCCL group given as the mesh's world group
-    (make_mesh leaves a world of one without a group), so the all-reduce is
-    issued and captured inside the step's one graph: three float32 steps
-    held bitwise against eager (hold_dp_capture), then bf16 steps captured
-    (the warm-up, the capture, ``steps`` counted replays) and eager (1
-    warm-up, ``steps`` counted): ms per step, GAT launches counted on the
-    card."""
+    """The DP step, or with ``edge`` the edge-sharded step and request, on
+    a one-rank NCCL group given as the mesh's world group (and edge group;
+    make_mesh leaves a world of one without a group; the batches sharded
+    at K=1), so every collective is issued and captured inside the step's
+    one graph: three float32 steps held bitwise against eager
+    (hold_dp_capture; the edge request: hold_edge_eval_capture), then bf16
+    steps captured (the warm-up, the capture, ``steps`` counted replays)
+    and eager (1 warm-up, ``steps`` counted): ms per step, GAT launches
+    counted on the card; with ``edge`` the bf16 request too."""
     import torch
     import torch.distributed as dist
+    from graphvqa_tpu_torch.parallel.edge_sharded import prepare_dp_edge_batch
     from graphvqa_tpu_torch.parallel.mesh import Mesh
     from graphvqa_tpu_torch.train.train_state import create_train_state
     dev = torch.device("cuda", 0)
-    mesh = Mesh(data=1, edge=1, rank=0, world_group=dist.group.WORLD)
+    group = dist.group.WORLD
+    edge = case.get("edge", False)
+    mesh = Mesh(data=1, edge=1, rank=0, world_group=group,
+                edge_group=group if edge else None)
     backend = dist.get_backend(mesh.world_group)
+
+    def batches_at(cfg, seeds):
+        out = [qa_batch(cfg, case["batch"], seed=case["seed"] + i)
+               for i in seeds]
+        if edge:
+            out = prepare_dp_edge_batch(out, mesh)
+        return [b.to(dev) for b in out]
+
     cfg32, cfg = case["cfg32"], case["cfg"]
+    tag = f"multi {case['name']} ({backend})"
     model = full_model(cfg32, dev)
     state = create_train_state(model, lr=cfg32.train.lr)
     gen = torch.Generator(device=dev).manual_seed(0)
-    batches = [qa_batch(cfg32, case["batch"], seed=case["seed"] + i).to(dev)
-               for i in range(3)]
+    batches = batches_at(cfg32, range(3))
     rec = dict(backend=backend, check=hold_dp_capture(
-        cfg32, mesh, state, batches, gen, f"multi nccl ({backend})"))
+        cfg32, mesh, state, batches, gen, tag))
+    if edge:
+        rec["eval_check"] = hold_edge_eval_capture(cfg32, mesh, model,
+                                                   batches[0], tag)
     del model, state, batches
     torch.cuda.empty_cache()
     model = full_model(cfg, dev)
     state = create_train_state(model, lr=cfg.train.lr)
-    batch = qa_batch(cfg, case["batch"], seed=case["seed"] + 9).to(dev)
+    batch, = batches_at(cfg, [9])
     for mode, untimed in (("captured", 2), ("eager", 1)):
         rec[mode] = time_dp_steps(cfg, mesh, state, batch, gen, mode,
                                   untimed, case["steps"])
+        if edge:
+            rec[f"{mode}_eval"] = time_edge_eval(cfg, mesh, model, batch,
+                                                 mode, case["steps"])
     rec["peak"] = peak_gib(dev)
     torch.save(rec, MULTI_DIR / f"{case['name']}_rank{rank}.pt")
 
@@ -2278,11 +2404,11 @@ def time_dp_steps(cfg, mesh, state, batch, gen, mode, untimed, steps,
     """``steps`` timed calls of make_dp_train_step ("captured" or "eager")
     after ``untimed`` ones, the GAT launches (counts set to 0 just before,
     read just after) and the Python calls of dist.all_reduce per step
-    counted over them; with ``profile`` (a tag) then one profiled step and
-    the peak memory. -> dict(times, losses, launches, reduces[, prof,
-    peak][, calls, capture_s])"""
+    counted over them (each one's op, shape and dtype in order); with
+    ``profile`` (a tag) then one profiled step and the peak memory.
+    -> dict(times, losses, launches, reduces, reduce_calls[, prof,
+    peak][, calls, capture_s, segments])"""
     import torch
-    import torch.distributed as dist
     from graphvqa_tpu_torch.ops.gat_round import (
         launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.parallel.data_parallel import make_dp_train_step
@@ -2291,34 +2417,68 @@ def time_dp_steps(cfg, mesh, state, batch, gen, mode, untimed, steps,
     for _ in range(untimed):
         step(state, batch, gen)
     torch.cuda.synchronize()
-    all_reduce, times, losses, reduces = dist.all_reduce, [], [], []
-
-    def counted(*args, **kwargs):
-        reduces[-1] += 1
-        return all_reduce(*args, **kwargs)
-
+    times, losses, calls = [], [], []
     reset_launch_counts()
-    dist.all_reduce = counted
-    try:
+    with counted_all_reduces(calls):
         for _ in range(steps):
-            reduces.append(0)
+            calls.append([])
             t0 = time.perf_counter()
             _, m = step(state, batch, gen)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             losses.append(float(m["total"]))
-    finally:
-        dist.all_reduce = all_reduce
     out = dict(times=times, losses=losses, launches=launch_counts(),
-               reduces=reduces)
+               reduces=[len(c) for c in calls], reduce_calls=calls)
     if profile is not None:
         out["prof"] = profiled_step(lambda: step(state, batch, gen),
                                     f"{profile} {mode}", 0)
         out["peak"] = peak_gib(torch.device("cuda", 0))
-    if step.graphs is not None:
-        out.update(calls=(step.graphs.warm_ups, step.graphs.captures,
-                          step.graphs.replays),
-                   capture_s=sum(step.graphs.capture_seconds.values()))
+    out.update(graph_counts(step.graphs))
+    return out
+
+
+def graph_counts(graphs):
+    """A step's graph calls (warm-ups, captures, replays), capture seconds
+    and segments per key; nothing for an eager step."""
+    if graphs is None:
+        return {}
+    return dict(calls=(graphs.warm_ups, graphs.captures, graphs.replays),
+                capture_s=sum(graphs.capture_seconds.values()),
+                segments=list(graphs.segments.values()))
+
+
+def time_edge_eval(cfg, mesh, model, batch, mode, n, profile=None):
+    """``n`` timed requests of make_edge_eval_step ("captured": after the
+    warm-up and the capture; "eager": after one warm-up), with the GAT
+    launches and the dist.all_reduce calls per request counted over them;
+    with ``profile`` then one profiled request and the peak memory since
+    the last reset. -> time_dp_steps' dict, without losses"""
+    import torch
+    from graphvqa_tpu_torch.ops.gat_round import (
+        launch_counts, reset_launch_counts)
+    from graphvqa_tpu_torch.parallel.edge_sharded import make_edge_eval_step
+    step = make_edge_eval_step(model, cfg, mesh, capture=mode == "captured")
+    for _ in range(2 if mode == "captured" else 1):
+        step(batch)
+    torch.cuda.synchronize()
+    times, calls = [], []
+    reset_launch_counts()
+    with counted_all_reduces(calls):
+        for _ in range(n):
+            calls.append([])
+            t0 = time.perf_counter()
+            vec, _, _ = step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(vec["sa_score"].float()).all()):
+        fail(f"edge eval {mode}: non-finite scores")
+    out = dict(times=times, launches=launch_counts(),
+               reduces=[len(c) for c in calls], reduce_calls=calls)
+    if profile is not None:
+        out["prof"] = profiled_step(lambda: step(batch),
+                                    f"{profile} eval {mode}", 0)
+        out["peak"] = peak_gib(torch.device("cuda", 0))
+    out.update(graph_counts(step.graphs))
     return out
 
 
@@ -2328,7 +2488,8 @@ def _rank_time(rank, case):
     dist.all_reduce counted over them; with ``captured``, then the same
     through the captured step (the eager run's cache freed first: the
     warm-up, the capture, ``steps`` counted replays), and one profiled step
-    of each; then the step's one all-reduce alone on a buffer of its
+    of each; with ``eval``, then the edge eval request eager and captured
+    the same way; then the step's one all-reduce alone on a buffer of its
     size."""
     import torch
     import torch.distributed as dist
@@ -2356,6 +2517,12 @@ def _rank_time(rank, case):
         torch.cuda.reset_peak_memory_stats(dev)
         rec["captured"] = time_dp_steps(cfg, mesh, state, batch, gen,
                                         "captured", 2, case["steps"], profile)
+    if case.get("eval"):
+        for mode in ("eager", "captured"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            rec[f"{mode}_eval"] = time_edge_eval(cfg, mesh, model, batch,
+                                                 mode, case["steps"], profile)
     # the step's one all-reduce alone, on a buffer of the gradients' and
     # statistics' size (and none of the step's tensors)
     sizes = StepReduce(model, mesh)
@@ -2418,46 +2585,72 @@ def reference_step(cfg, dev, batch, relu_record=None):
     return rec
 
 
+def _run_text(run, unit="step"):
+    """A timed run's text: ms per call, the dist.all_reduce calls per
+    call, the profiled call, the graph counts, segments and peak."""
+    text = (f"ms/{unit} {', '.join(f'{t * 1e3:.2f}' for t in run['times'])}"
+            + (f", loss {', '.join(f'{v:.5f}' for v in run['losses'])}"
+               if "losses" in run else "")
+            + f", dist.all_reduce calls per {unit} {run['reduces']}")
+    prof = run.get("prof")
+    if prof is not None:
+        text += (f", profiled: wall {prof['wall_ms']:.2f} ms, device "
+                 f"busy {prof['busy_ms']:.2f} ms, "
+                 f"{prof['host_launches']} host launch calls")
+    if "calls" in run:
+        text += (f", (warm-ups, captures, replays) {run['calls']}, "
+                 f"graphs per {unit} {run['segments']}, capture "
+                 f"{run['capture_s']:.3f}s")
+    if "peak" in run:
+        text += f", peak {run['peak']}"
+    return text
+
+
+def _hold_run(tag, mode, run, launches, collectives):
+    """Fails on GAT launches other than ``launches`` (forward, backward)
+    per call, on a non-finite loss, or on a call whose dist.all_reduce
+    calls differ from ``collectives`` (a list of (op, shape, dtype)) in
+    number or order: the eager call's own, or none for a replay whose
+    graph holds its collectives (NCCL)."""
+    n = len(run["times"])
+    if run["launches"] != (launches[0] * n, launches[1] * n):
+        fail(f"{tag} {mode}: gat_round / gat_round_backward launches "
+             f"{run['launches']} in {n} calls, expected {launches} each "
+             f"per call")
+    if not all(map(math.isfinite, run.get("losses", []))):
+        fail(f"{tag} {mode}: non-finite loss {run['losses']}")
+    if run["reduce_calls"] != [collectives] * n:
+        fail(f"{tag} {mode}: dist.all_reduce calls per call "
+             f"{run['reduces']} differ from the expected {len(collectives)} "
+             f"in number or order (op, shape, dtype)")
+
+
 def _timing_line(tag, runs, rounds):
     """Per-rank ms per step and launches of a 'time' case, its captured run
-    beside the eager one where it has one (host launch calls, capture
-    seconds, peak memory); fails on a non-finite loss, on launches other
-    than ``rounds`` + ``rounds`` per rank per step in either run, or on a
-    captured run that made other than one all-reduce per step. -> the GAT
-    launches of the run the path takes: the captured one where there is
-    one."""
+    beside the eager one where it has one (host launch calls, graphs per
+    step, capture seconds, peak memory), and its edge eval requests where
+    it has them; fails (_hold_run) on a non-finite loss, on launches other
+    than ``rounds`` + ``rounds`` per rank per step in either run (``rounds``
+    + 0 per request), or on a captured run whose collectives differ from
+    the eager step's own in number or order. -> the GAT launches of the
+    run the path takes: the captured one where there is one."""
     total = [0, 0]
     for r, rec in enumerate(runs):
+        eager = rec["reduce_calls"][0]
         modes = ([("captured", rec["captured"])] if "captured" in rec
                  else []) + [("eager", rec)]
         texts = []
         for mode, run in modes:
-            steps = len(run["times"])
-            if run["launches"] != (rounds * steps, rounds * steps):
-                fail(f"{tag} rank {r} {mode}: gat_round / "
-                     f"gat_round_backward launches {run['launches']} in "
-                     f"{steps} steps, expected {rounds} each per step")
-            if not all(map(math.isfinite, run["losses"])):
-                fail(f"{tag} rank {r} {mode}: non-finite loss "
-                     f"{run['losses']}")
-            if mode == "captured" and run["reduces"] != [1] * steps:
-                fail(f"{tag} rank {r}: dist.all_reduce calls per captured "
-                     f"step {run['reduces']}, expected 1 each")
-            text = (f"{mode} ms/step "
-                    f"{', '.join(f'{t * 1e3:.2f}' for t in run['times'])}, "
-                    f"loss {', '.join(f'{v:.5f}' for v in run['losses'])}, "
-                    f"dist.all_reduce calls per step {run['reduces']}")
-            prof = run.get("prof")
-            if prof is not None:
-                text += (f", profiled: wall {prof['wall_ms']:.2f} ms, device "
-                         f"busy {prof['busy_ms']:.2f} ms, "
-                         f"{prof['host_launches']} host launch calls")
-            if "calls" in run:
-                text += (f", (warm-ups, captures, replays) {run['calls']}, "
-                         f"capture {run['capture_s']:.3f}s")
-            if "peak" in run:
-                text += f", peak {run['peak']}"
-            texts.append(text)
+            # through gloo every replay makes the eager step's collectives
+            _hold_run(f"{tag} rank {r}", mode, run, (rounds, rounds), eager)
+            texts.append(f"{mode} " + _run_text(run))
+        if "eager_eval" in rec:
+            eager = rec["eager_eval"]["reduce_calls"][0]
+            for mode in ("captured", "eager"):
+                run = rec[f"{mode}_eval"]
+                _hold_run(f"{tag} rank {r} eval", mode, run, (rounds, 0),
+                          eager)
+                texts.append(f"eval {mode} " + _run_text(run, "request"))
         main = modes[0][1]["launches"]
         total[0] += main[0]
         total[1] += main[1]
@@ -2465,8 +2658,9 @@ def _timing_line(tag, runs, rounds):
             f"{rec['epg_loc']}, the gradient all-reduce alone "
             f"{rec['reduce_ms']:.1f} ms, peak {rec['peak_gib']:.2f} GiB "
             f"allocated in the rank")
-    log(f"[{tag}] launches per rank per step {rounds} + {rounds}, counted "
-        f"on the card")
+    log(f"[{tag}] launches per rank per step {rounds} + {rounds}"
+        + (f", per request {rounds}" if "eager_eval" in runs[0] else "")
+        + ", counted on the card")
     return total
 
 
@@ -2530,6 +2724,9 @@ def phase_dp(dev):
             f"(its own gradient before the reduce; the params against the "
             f"average-then-Adam): {line}")
     for d, got in enumerate(ranks["dp_check"]):
+        if got["captured"]["segments"] != [2]:
+            fail(f"multi dp rank {d}: graphs per step "
+                 f"{got['captured']['segments']}, expected 2 (one cut)")
         if got["captured"]["all_reduces"] != {"eager": [1, 1, 1],
                                               "captured": [1, 1, 1]}:
             fail(f"multi dp rank {d}: dist.all_reduce calls per step "
@@ -2541,50 +2738,60 @@ def phase_dp(dev):
     nccl = run_ranks(1, [dict(kind="nccl", name="dp_nccl", cfg32=cfg32,
                               cfg=cfg, batch=Bd, seed=320, steps=3)],
                      backend="nccl")["dp_nccl"][0]
-    if nccl["backend"] != "nccl":
-        fail(f"multi nccl: the world group's backend is {nccl['backend']}")
-    reduces = nccl["check"]["all_reduces"]
-    if reduces != {"eager": [1, 1, 1], "captured": [1, 1, 0]}:
-        fail(f"multi nccl: dist.all_reduce calls per step {reduces}, "
-             f"expected one per eager step and none on the replay (the "
-             f"all-reduce inside the graph)")
-    rounds = gat_rounds(cfg)
-    parts = []
-    for mode in ("captured", "eager"):
-        run = nccl[mode]
-        n = len(run["times"])
-        if run["launches"] != (rounds * n, rounds * n):
-            fail(f"multi nccl {mode}: GAT launches {run['launches']} in "
-                 f"{n} steps, expected {rounds} each per step")
-        if not all(map(math.isfinite, run["losses"])):
-            fail(f"multi nccl {mode}: non-finite loss {run['losses']}")
-        if run["reduces"] != [0 if mode == "captured" else 1] * n:
-            fail(f"multi nccl {mode}: dist.all_reduce calls per step "
-                 f"{run['reduces']}")
-        parts.append(f"{mode} ms/step "
-                     f"{', '.join(f'{t * 1e3:.2f}' for t in run['times'])}"
-                     f", dist.all_reduce calls per step {run['reduces']}"
-                     + (f", capture {run['capture_s']:.3f}s"
-                        if "capture_s" in run else ""))
-    log(f"[multi nccl] one rank, the world group given to the mesh: f32 "
-        f"B={Bd}, 3 steps captured against eager: "
-        f"{_capture_held(nccl['check'])} (the capture call issued the "
-        f"all-reduce into the graph, the replay none from Python); bf16 "
-        f"B={Bd}: {'; '.join(parts)}; GAT launches {rounds} + {rounds} per "
-        f"step counted on the card; peak {nccl['peak']}")
+    _nccl_line("multi nccl", nccl, gat_rounds(cfg), {"check": 1},
+               f"the world group given to the mesh: f32 B={Bd}")
     log(f"[multi dp] phase {time.perf_counter() - t0:.1f}s")
     return launches
 
 
 def _capture_held(rec):
-    """The text of a hold_dp_capture result."""
+    """The text of a hold_dp_capture (or hold_edge_eval_capture) result."""
     c = rec["captured"] if "captured" in rec else rec
-    return (f"metrics, parameters, own gradients, Adam moments and running "
+    text = ("outputs bitwise" if "losses" not in c else
+            f"metrics, parameters, own gradients, Adam moments and running "
             f"statistics bitwise; losses "
-            f"{', '.join(f'{v:.7f}' for v in c['losses'])}; (warm-ups, "
-            f"captures, replays) {c['graphs']}; dist.all_reduce calls per "
-            f"step {c['all_reduces']}; capture {c['capture_s']:.3f}s; peak "
-            f"{c['peak']}")
+            f"{', '.join(f'{v:.7f}' for v in c['losses'])}")
+    return (f"{text}; (warm-ups, captures, replays) {c['graphs']}; graphs "
+            f"per call {c['segments']}; dist.all_reduce calls per call "
+            f"{c['all_reduces']}; capture {c['capture_s']:.3f}s"
+            + (f"; peak {c['peak']}" if "peak" in c else ""))
+
+
+def _nccl_line(tag, rec, rounds, collectives, what):
+    """Checks and logs a one-rank NCCL case (_rank_nccl): the backend, the
+    f32 holds' dist.all_reduce calls (``collectives``: per eager call and
+    per capture of each hold, {'check': n[, 'eval_check': m]}; none in a
+    replay), and each bf16 run (_hold_run: a replay issues none)."""
+    if rec["backend"] != "nccl":
+        fail(f"{tag}: the world group's backend is {rec['backend']}")
+    for key, n in collectives.items():
+        if rec[key]["segments"] != [1]:
+            fail(f"{tag}: {key} graphs per call {rec[key]['segments']}, "
+                 f"expected 1 (no cut)")
+        reduces = rec[key]["all_reduces"]
+        if reduces != {"eager": [n] * len(reduces["eager"]),
+                       "captured": [n, n, 0]}:
+            fail(f"{tag}: dist.all_reduce calls per call {reduces}, "
+                 f"expected {n} per eager call and none on the replay (the "
+                 f"collectives inside the graph)")
+    parts = []
+    units = [("", "step", (rounds, rounds))] + (
+        [("_eval", "request", (rounds, 0))] if "eager_eval" in rec else [])
+    for suffix, unit, launches in units:
+        eager = rec[f"eager{suffix}"]["reduce_calls"][0]
+        for mode in ("captured", "eager"):
+            run = rec[f"{mode}{suffix}"]
+            _hold_run(f"{tag} {unit}", mode, run, launches,
+                      [] if mode == "captured" else eager)
+            parts.append(f"{unit} {mode} " + _run_text(run, unit))
+    held = _capture_held(rec["check"])
+    if "eval_check" in rec:
+        held += f"; the request: {_capture_held(rec['eval_check'])}"
+    log(f"[{tag}] one rank, {what}, 3 calls captured against eager: {held} "
+        f"(the warm-up and the capture issued the collectives, the capture "
+        f"into the graph, the replay none from Python); bf16: "
+        f"{'; '.join(parts)}; GAT launches {rounds} + {rounds} per step "
+        f"counted on the card; peak {rec['peak']}")
 
 
 def phase_edge(dev):
@@ -2592,9 +2799,17 @@ def phase_edge(dev):
     1 x edge 2. One float32 step against the single-process step on the
     card, held as phase 8 holds the card against the CPU (the ranks' ReLU
     inputs whose sign differs at round-off set to the single process's);
-    the two ranks' gradient shares sum to its gradient. Then bf16 steps (1
-    warm-up, 3 counted): the epg_loc reached, ms per step, GAT launches;
-    then one data 2 x edge 2 step on 4 ranks (B=256 per data rank).
+    the two ranks' gradient shares sum to its gradient. Then three more
+    float32 steps, captured (warm-up, capture, replay: 19 graphs a step,
+    cut at each collective) against eager, and an edge eval request (12
+    graphs) captured against eager, bitwise on each rank under
+    deterministic algorithms. Then bf16 steps and requests, eager (1
+    warm-up, 3 counted) and captured (the warm-up, the capture, 3 counted
+    replays): ms, host launch calls, collectives held to the eager call's,
+    graphs per call, capture seconds, peak memory, GAT launches counted on
+    the card; then one data 2 x edge 2 step on 4 ranks (B=256 per data
+    rank), eager, then captured after its warm-up; then the edge step and
+    request on a one-rank NCCL group (_rank_nccl), one graph each.
     Returns the GAT launches of the 1 x 2 run and of the 2 x 2 run."""
     import torch
     from graphvqa_tpu_torch.config import gat_config
@@ -2605,9 +2820,9 @@ def phase_edge(dev):
                          relu_record=relu_ref)
     ranks = run_ranks(2, [
         dict(kind="check", name="edge_check", data=1, edge=2, cfg=cfg32,
-             batch=B, seed=400, relu_ref=str(relu_ref)),
+             batch=B, seed=400, relu_ref=str(relu_ref), captured=True),
         dict(kind="time", name="edge_time", data=1, edge=2, cfg=cfg, batch=B,
-             seed=410, warmup=True, steps=3)])
+             seed=410, warmup=True, steps=3, captured=True, eval=True)])
     relu_ref.unlink()
     r0, r1 = ranks["edge_check"]
     got = dict(r0, grads={n: r0["grads"][n] + r1["grads"][n]
@@ -2624,13 +2839,44 @@ def phase_edge(dev):
         f"the ranks' summed gradient shares against one process: {line}; "
         f"ReLU inputs set to the single process's sign: {pinned}")
     rounds = gat_rounds(cfg)
+    # the forward's MetaLayer assembly and each round's pmax and assembly;
+    # a train step adds the backward's assemblies and its all-reduce
+    forward = 1 + 2 * rounds
+    collectives = forward + 1 + rounds + 1
+    for r, run in enumerate((r0, r1)):
+        want = {"eager": [collectives] * 3, "captured": [collectives] * 3}
+        if run["captured"]["all_reduces"] != want:
+            fail(f"multi edge rank {r}: dist.all_reduce calls per step "
+                 f"{run['captured']['all_reduces']}, expected {want}")
+        segments = (run["captured"]["segments"], run["eval"]["segments"])
+        if segments != ([collectives + 1], [forward + 1]):
+            fail(f"multi edge rank {r}: graphs per step and per request "
+                 f"{segments}, expected one more than the collectives "
+                 f"({collectives}, {forward})")
+        want = {"eager": [forward], "captured": [forward] * 3}
+        if run["eval"]["all_reduces"] != want:
+            fail(f"multi edge rank {r}: dist.all_reduce calls per request "
+                 f"{run['eval']['all_reduces']}, expected {want}")
+        log(f"[multi edge] f32 B={B} rank {r}, 3 more steps captured "
+            f"against eager under deterministic algorithms: "
+            f"{_capture_held(run)}; an edge eval request, 3 captured "
+            f"against eager: {_capture_held(run['eval'])}")
     launches = _timing_line(f"multi edge bf16 B={B} data 1 x edge 2",
                             ranks["edge_time"], rounds)
     grid = run_ranks(4, [dict(kind="time", name="edge_2x2", data=2, edge=2,
                               cfg=cfg, batch=B // 2, seed=420, warmup=False,
-                              steps=1)])
+                              steps=1, captured=True)])
     more = _timing_line(f"multi edge bf16 data 2 x edge 2, B={B // 2} per "
-                        f"data rank, first step", grid["edge_2x2"], rounds)
+                        f"data rank, the first step eager, then one "
+                        f"captured after its warm-up", grid["edge_2x2"],
+                        rounds)
+    nccl = run_ranks(1, [dict(kind="nccl", name="edge_nccl", edge=True,
+                              cfg32=cfg32, cfg=cfg, batch=B // 2, seed=430,
+                              steps=3)], backend="nccl")["edge_nccl"][0]
+    _nccl_line("multi edge nccl", nccl, rounds,
+               {"check": collectives, "eval_check": forward},
+               f"the world and edge group given to the mesh, the batches "
+               f"sharded at K=1: f32 B={B // 2}")
     log(f"[multi edge] phase {time.perf_counter() - t0:.1f}s")
     return launches, more
 
@@ -2669,15 +2915,24 @@ def phase_cli_dist(data):
     --data-parallel 2 with two ranks sharing the card over gloo (two epochs
     of 2 steps of B=256 per rank, each with a 1-batch validation, then
     --evaluate over both ranks' shards, whose gathered dump must hold every
-    val question once). Each rank of the data-parallel run must capture
-    and replay its train and eval steps (the CLI's 'step graphs' lines)."""
+    val question once), and --data-parallel 1 --edge-parallel 2 with two
+    ranks sharing each B=512 batch over gloo (two epochs of 2 steps, each
+    with a 1-batch validation, then --evaluate of the 2 batches). Each
+    rank of the two-rank runs must capture and replay its train and eval
+    steps (the CLI's 'step graphs' lines; an edge share's padding follows
+    its batch, so one epoch of 2 steps may hold two shapes and no
+    capture)."""
     t0 = time.perf_counter()
     root = data["data"]
     launches = [0, 0]
     for tag, nproc, bsz, epochs, extra in (
             ("nccl", 1, B, 1, []),
             ("gloo-dp2", 2, B // 2, 2, ["--data-parallel", "2",
-                                        "--dist-backend", "gloo"])):
+                                        "--dist-backend", "gloo"]),
+            ("gloo-edge2", 2, B, 2, ["--data-parallel", "1",
+                                     "--edge-parallel", "2",
+                                     "--dist-backend", "gloo"])):
+        data_ranks = 1 if "--edge-parallel" in extra else nproc
         out = SMOKE_DIR / f"cli_{tag}"
         common = ["--data-root", str(root), "--split", "val_balanced",
                   "--val-split", "val_balanced", "--batch-size", str(bsz),
@@ -2695,8 +2950,8 @@ def phase_cli_dist(data):
             fail(f"CLI {tag}: no checkpoint")
         eval_out, eval_s = _run_torchrun(nproc, common + [
             "--resume", str(out / "ckpt"), "--evaluate", "--dump-result",
-            "--dump-attentions", "--fast-validate", str(1024 // (bsz * nproc))
-        ], f"cli_{tag}_evaluate")
+            "--dump-attentions", "--fast-validate",
+            str(1024 // (bsz * data_ranks))], f"cli_{tag}_evaluate")
         if "resumed from" not in eval_out:
             fail(f"CLI {tag}: did not resume")
         dump = json.loads((out / "dump_results.json").read_text())
@@ -2715,6 +2970,8 @@ def phase_cli_dist(data):
             train_calls, eval_calls = (
                 _rank_graphs(train_out, f"{what} epoch {epochs - 1}", nproc,
                              tag) for what in ("train", "validate"))
+            # an edge share's padding follows its batch, so the evaluation's
+            # two batches may be two shapes, each only warmed up
             evaluate = re.findall(r"step graphs \(evaluate .*", eval_out)
             graphs = (f"; per rank (shapes, warm-ups, captures, replays): "
                       f"train {train_calls}, validation {eval_calls}; "

@@ -32,7 +32,9 @@ CLI runs one jitted program per ladder rung: the first step at a shape runs
 eagerly, the second captures its graph. The graphs live in the process, so
 nothing persists across runs the way ``--compile-cache`` keeps JAX's
 programs; the CLI prints the warm-ups, captures and replays after each
-epoch and evaluation. Several ranks run their steps eagerly.
+epoch and evaluation, each rank's under torchrun. Several ranks capture
+alike, on every (data, edge) mesh: over gloo a step's graphs are cut at
+each collective, which runs on the host between two of them.
 
 Several GPUs: launch one process per rank with torchrun, and split the
 ranks into ``--data-parallel`` D x ``--edge-parallel`` K = WORLD_SIZE:
@@ -427,13 +429,10 @@ def main(args):
     ctx_generator = torch.Generator(device=dev).manual_seed(
         data_seed(args.seed + 2, mesh))
     fast_validate = args.fast_validate or None
-    # the steps replay CUDA graphs per batch shape, under data parallelism
-    # too (train/graphs.py, parallel/data_parallel.py); with an edge axis
-    # they are eager: their forward and backward hold the edge group's
-    # collectives, which gloo cannot run inside a graph
-    capture = E == 1
+    # the steps replay CUDA graphs per batch shape, on every mesh
+    # (train/graphs.py, parallel/data_parallel.py)
     eval_step = (make_edge_eval_step(model, cfg, mesh) if E > 1
-                 else make_eval_step(model, cfg, capture=capture))
+                 else make_eval_step(model, cfg))
     val_ds = GQADataset(programs_path(args.val_split),
                         scenes_path(args.val_split), text_vocab, sg_vocab)
 
@@ -478,11 +477,9 @@ def main(args):
           f"{time.perf_counter() - t0:.1f}s")
 
     K = max(args.steps_per_dispatch, 1)
-    train_step = (make_dp_train_step(model, cfg, mesh, steps_per_dispatch=K,
-                                     capture=capture)
+    train_step = (make_dp_train_step(model, cfg, mesh, steps_per_dispatch=K)
                   if mesh.size > 1 else
-                  make_train_step(model, cfg, steps_per_dispatch=K,
-                                  capture=capture))
+                  make_train_step(model, cfg, steps_per_dispatch=K))
 
     def batches_fn(epoch):
         """This data rank's shard of the epoch, K batches per step."""

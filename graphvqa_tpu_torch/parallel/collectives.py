@@ -3,6 +3,14 @@
 
 Each takes a process group from :class:`~graphvqa_tpu_torch.parallel.mesh.Mesh`;
 a group of None is this process alone, and the collective is the identity.
+
+The collectives of a train or eval step (:func:`all_reduce_`, :func:`pmax`,
+:class:`AssembleRows`) may run inside a CUDA graph's capture
+(``train/graphs.py``). Over NCCL they are captured into the graph. Through
+gloo, which reduces on the host, each is a host call of the step, and in a
+capture a cut: the graph before it writes the step's own buffer for the
+call, the host reduces that buffer in place between two replayed graphs,
+and the graph after it reads it.
 """
 from __future__ import annotations
 
@@ -10,6 +18,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
+
+from graphvqa_tpu_torch.train import graphs
 
 
 def psum_scalars(metrics: Dict[str, torch.Tensor],
@@ -36,13 +46,36 @@ def all_gather_host(obj: Any, group: Optional[object] = None) -> List[Any]:
     return out
 
 
+def all_reduce_(t: torch.Tensor, group: object,
+                op=dist.ReduceOp.SUM) -> None:
+    """``t`` all-reduced over ``group`` in place: inside the step's graph
+    over NCCL, else a host call (module doc). ``t`` lies outside the
+    graphs' pool and is the same tensor at every call of the step (as
+    ``data_parallel.StepReduce.flat`` is)."""
+    if dist.get_backend(group) == "nccl":
+        dist.all_reduce(t, op=op, group=group)
+    else:
+        graphs.host_call(lambda: dist.all_reduce(t, op=op, group=group))
+
+
+def _reduced(x: torch.Tensor, group: object, op) -> torch.Tensor:
+    """A copy of ``x`` all-reduced over ``group``: through the host, in the
+    step's own buffer for the call (``train/graphs.py:host_buffer``), and
+    a copy of that handed on, since the buffer is the step's."""
+    if dist.get_backend(group) == "nccl" or not graphs.stepping():
+        out = x.clone()
+        dist.all_reduce(out, op=op, group=group)
+        return out
+    buf = graphs.host_buffer(x)
+    all_reduce_(buf, group, op)
+    return buf.clone()
+
+
 def pmax(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:
     """The element-wise max over ``group`` (no gradient); ``x`` for None."""
     if group is None:
         return x
-    out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
-    return out
+    return _reduced(x.detach(), group, dist.ReduceOp.MAX)
 
 
 class AssembleRows(torch.autograd.Function):
@@ -60,15 +93,11 @@ class AssembleRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return _reduced(x, group, dist.ReduceOp.SUM)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
+        return _reduced(grad, ctx.group, dist.ReduceOp.SUM), None
 
 
 def assemble_rows(x: torch.Tensor, group: Optional[object]) -> torch.Tensor:

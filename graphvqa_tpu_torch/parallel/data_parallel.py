@@ -28,24 +28,26 @@ A step makes one collective: the gradients, the running statistics and the
 step's metrics go through one all-reduce in one float32 buffer
 (:class:`StepReduce`), as JAX's ``shard_map`` step reduces them inside one
 program. On the card the step replays CUDA graphs per batch shape, as
-``make_train_step`` does (``train/graphs.py``): over gloo, graph A
-(forward, backward, the buffer packed), the all-reduce on the host, graph B
-(the buffer unpacked, Adam, the statistics and metrics written); over NCCL
-one graph with the all-reduce inside it, JAX's single dispatch. With an
-edge axis the step stays eager: its forward and backward hold the edge
-group's collectives (``parallel/edge_sharded.py``), which gloo cannot run
-inside a graph.
+``make_train_step`` does (``train/graphs.py``), the port's counterpart of
+JAX's jitted DP and data x edge steps. Over NCCL the step is one graph with
+every collective inside it, JAX's single dispatch. Through gloo each
+collective is a cut between two graphs: the DP step is graph A (forward,
+backward, the buffer packed), the all-reduce on the host, graph B (the
+buffer unpacked, Adam, the statistics and metrics written); with an edge
+axis the forward's and the backward's collectives
+(``parallel/edge_sharded.py``) cut it too, into 19 graphs at
+gat_config()'s five GAT rounds.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 
 from graphvqa_tpu_torch.config import Config
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.models.pipeline import PipelineModel
+from graphvqa_tpu_torch.parallel.collectives import all_reduce_
 from graphvqa_tpu_torch.parallel.mesh import Mesh
 from graphvqa_tpu_torch.train import loop
 from graphvqa_tpu_torch.train.loop import forward_backward, multi_step
@@ -107,7 +109,7 @@ class StepReduce:
 
     def all_reduce(self) -> None:
         if self.mesh.world_group is not None:
-            dist.all_reduce(self.flat, group=self.mesh.world_group)
+            all_reduce_(self.flat, self.mesh.world_group)
 
     @torch.no_grad()
     def unpack(self):
@@ -146,31 +148,24 @@ def make_dp_train_step(model: PipelineModel, cfg: Config, mesh: Mesh,
     takes a list of K batches and runs K steps in order (K replays on the
     card). On the card each step replays its batch shape's graphs (module
     doc; ``capture=False`` keeps the eager step, the graphs are
-    ``train_step.graphs``); with an edge axis it is eager, since its
-    forward and backward hold the edge group's collectives. A replayed
-    step's metrics and ``.grad`` are its graphs' outputs, which the next
-    step overwrites, as ``make_train_step``'s are."""
+    ``train_step.graphs``). A replayed step's metrics and ``.grad`` are its
+    graphs' outputs, which the next step overwrites, as
+    ``make_train_step``'s are."""
     loss_scale = 1.0 / mesh.edge
     reduce = StepReduce(model, mesh)
-    graphs = loop._graphs(model, capture and mesh.edge == 1)
-    # NCCL's all-reduce is captured into the graph; gloo's runs on the
-    # host between two graphs
-    in_graph = (mesh.world_group is None
-                or dist.get_backend(mesh.world_group) == "nccl")
+    graphs = loop._graphs(model, capture)
 
-    def first(batch: QABatch, generator, ctx_generator):
-        """Forward, backward, the buffer packed -> this rank's own
-        gradients."""
+    def body(state: TrainState, batch: QABatch, generator, ctx_generator):
+        """Forward, backward, the buffer packed, reduced and unpacked, Adam
+        -> (this rank's own gradients, the reduced metrics)."""
         metrics = forward_backward(model, cfg, batch, generator,
                                    ctx_generator, loss_scale=loss_scale)
+        own = {n: p.grad for n, p in model.named_parameters()}
         reduce.pack(metrics)
-        return {n: p.grad for n, p in model.named_parameters()}
-
-    def second(state: TrainState):
-        """The reduced buffer unpacked, Adam -> the reduced metrics."""
+        reduce.all_reduce()
         grads, metrics = reduce.unpack()
         state.update(grads)
-        return metrics
+        return own, metrics
 
     def train_step(state: TrainState, batch: QABatch,
                    generator: torch.Generator,
@@ -181,24 +176,13 @@ def make_dp_train_step(model: PipelineModel, cfg: Config, mesh: Mesh,
         lr = state.current_lr()
         state.prepare()
         if graphs is None:
-            first(batch, generator, ctx_generator)
-            reduce.all_reduce()
-            metrics = second(state)
+            _, metrics = body(state, batch, generator, ctx_generator)
         else:
-            def graph_a(b):
-                return first(b, generator, ctx_generator)
-
-            def whole(b):
-                own = graph_a(b)
-                reduce.all_reduce()
-                return own, second(state)
-
             own, metrics = graphs(
-                whole if in_graph else (graph_a, lambda: second(state)), batch,
+                lambda b: body(state, b, generator, ctx_generator), batch,
                 (generator, ctx_generator),
                 bind=(state, state.opt_state, state.opt_state["count"],
-                      state.lr_tensor),
-                host=None if in_graph else reduce.all_reduce)
+                      state.lr_tensor))
             # this rank's own gradient, before the reduce (module doc)
             for n, p in model.named_parameters():
                 p.grad = own[n]

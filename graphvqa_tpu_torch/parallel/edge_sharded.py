@@ -16,7 +16,9 @@ Gradients: each rank scales its loss by 1/K and the assembly sums the
 cotangent shares in its backward (``parallel/collectives.py:AssembleRows``),
 so every rank's parameter gradient is a share and the K shares sum to the
 single-device gradient; the data-parallel step's one all-reduce sums them
-(``parallel/data_parallel.py``).
+(``parallel/data_parallel.py``). On the card the train and eval steps
+replay CUDA graphs per batch shape, cut at each collective through gloo
+and whole over NCCL (``train/graphs.py``), as JAX jits its edge steps.
 
 Random streams are seeded by the data rank only, so the edge ranks of a
 data index draw the same node-path dropout masks and LCGN context features;
@@ -165,18 +167,21 @@ def prepare_edge_eval_batch(batch: QABatch, mesh: Mesh,
 # The JAX package's name for the train step on a data x edge mesh: it is
 # make_dp_train_step, whose one all-reduce sums the edge ranks' gradient
 # shares (each rank scales its loss by 1/K) with the data ranks' gradients.
-# Batches come from prepare_dp_edge_batch (a list of K for K steps a call).
+# Batches come from prepare_dp_edge_batch (a list of K for K steps a call,
+# K replays on the card: JAX's dp_edge_multi_step).
 make_dp_edge_train_step = make_dp_train_step
 
 
-def make_edge_eval_step(model: PipelineModel, cfg: Config,
-                        mesh: Mesh) -> Callable:
+def make_edge_eval_step(model: PipelineModel, cfg: Config, mesh: Mesh,
+                        capture: bool = True) -> Callable:
     """Greedy-decode evaluation with the edges sharded as in training:
     make_eval_step's step (same signature and outputs, which come out alike
     on every edge rank) on batches from :func:`prepare_edge_eval_batch`.
-    It stays eager: its assemblies are collectives through gloo, which a
-    CUDA graph cannot hold."""
-    step = make_eval_step(model, cfg, capture=False)
+    On the card each request replays its batch shape's graphs, cut at the
+    forward's collectives through gloo, whole over NCCL
+    (``train/graphs.py``); ``capture=False`` keeps the eager step (the
+    graphs are ``edge_eval_step.graphs``)."""
+    step = make_eval_step(model, cfg, capture=capture)
 
     def edge_eval_step(batch: QABatch, generator=None):
         if mesh.edge > 1 and batch.graphs.edge_group is None:
@@ -184,4 +189,5 @@ def make_edge_eval_step(model: PipelineModel, cfg: Config,
                              "edge_sharded.prepare_edge_eval_batch")
         return step(batch, generator)
 
+    edge_eval_step.graphs = step.graphs
     return edge_eval_step

@@ -10,7 +10,8 @@ dtypes and static sizes (:func:`batch_key`):
   warm-up is a real step, and it sets up what is made lazily outside any
   capture: cuBLAS workspaces and the GAT kernels' shared-memory attributes;
 * the second call copies the batch into static tensors, captures the body
-  over them into a CUDA graph and replays it once;
+  over them into a CUDA graph (a chain of them where the body reaches the
+  host, below) and replays it once;
 * every later call copies its batch into those tensors and replays.
 
 A call returns the graph's own output tensors, which a later replay writes
@@ -25,16 +26,17 @@ addresses of the tensors it read at capture, so the state and generators a
 :class:`StepGraphs` is bound to (``bind``) must stay the same objects; when
 any changes, its graphs are dropped and the next call warms up again.
 
-All graphs on a device share one memory pool, so one graph's replay may
-write its work tensors where another graph keeps its outputs or
-gradients, and PyTorch promises a shared pool only to graphs replayed in
-the order of their capture. Rungs replay in any order here, which is sound
-because no replay reads pool memory that it did not write itself: a body
-reads its static inputs (made outside the pool), the parameters, moments
-and buffers (made outside it and updated in place) and what it wrote
-earlier in the same replay. What a replay leaves in the pool, its outputs
-(the train step's metrics and gradients among them), holds its values only
-until the next replay of any rung: read or copy them before that.
+The graphs alive on a device share one memory pool, so one graph's
+replay may write its work tensors where another graph keeps its outputs
+or gradients, and PyTorch promises a shared pool only to graphs replayed
+in the order of their capture. Rungs replay in any order here, which is
+sound because no step's replay reads pool memory that it did not write
+itself: a body reads its static inputs (made outside the pool), the
+parameters, moments and buffers (made outside it and updated in place)
+and what it wrote earlier in the same replay. What a replay leaves in the
+pool, its outputs (the train step's metrics and gradients among them),
+holds its values only until the next replay of any rung: read or copy
+them before that.
 (``chip_smoke.py`` phase 14 holds the main rung's replays, interleaved
 with the bumped rung's, to the eager step.)
 
@@ -43,41 +45,54 @@ so replays count as eager calls do. A replay runs no Python, so
 ``gat_round_backward.counter`` is pointed at the replayed graph's counter,
 to be read after the replay.
 
-A body may be a sequence of segments with a host call between each two:
-the data-parallel step (``parallel/data_parallel.py``) is graph A (forward,
-backward, gradients packed into one buffer), ``dist.all_reduce`` of that
-buffer through gloo, which no graph can hold, then graph B (the reduced
-buffer unpacked, Adam). Each segment is captured into a graph of its own
-in the shared pool; the key keeps one warm-up and one capture. Streams:
-a warm-up runs every segment and the host calls on the side stream, which
-waits for the current stream before and is waited for after; a capture
-records each segment on the side stream and runs nothing; a replay
-launches each graph on the current stream and issues the host calls there
-too. gloo's all-reduce of a CUDA tensor waits for the current stream's
-work (graph A) before it copies the buffer to the host, and makes the
-current stream wait for its copy back before graph B is launched, so no
-event of this module's own is needed. The buffer between segments is made
-outside the pool, so graph B reads no pool memory that it did not write
-itself. Over NCCL the all-reduce is captured inside the one graph.
+A step reaches the host where it runs a collective that no graph can
+hold: the data-parallel step's all-reduce (``parallel/data_parallel.py``)
+and the edge-sharded steps' maxima and row assemblies, forward and
+backward (``parallel/collectives.py``), through gloo. Such a collective is
+a host call (:func:`host_call`), and a host call inside a capture is a
+cut: the capture ends the current graph, keeps the call and begins the
+next graph in the same pool, so one key holds a chain of segments, graph
+0, host call 0, graph 1, and so on, in the order the body reached them,
+and a replay runs that chain. The data-parallel step over gloo has one
+cut; at gat_config()'s five GAT rounds a data x edge train step has 18
+(11 in the forward, 6 in the backward, the step's all-reduce) and an edge
+eval request 11. Over NCCL every
+collective runs inside the one graph, as JAX's ``shard_map`` step runs
+inside one program. A host call's tensor is the step's own buffer for
+that call (:func:`host_buffer`): made at the key's warm-up, outside the
+pool, and the same tensor for the graphs' life, so the graph before the
+cut writes it, the host call reduces it in place and the graph after the
+cut reads it. A cut in a backward falls on autograd's device thread,
+which ends a graph that the main thread began, or begins one that the
+main thread ends; CUDA allows that only in the relaxed capture mode, so a
+key whose warm-up made host calls captures in that mode. Streams: a
+warm-up runs the body and its host calls on the side stream; a capture
+records each segment on the side stream and runs no host call; a replay
+launches each graph on the current stream and issues the host calls
+there too. gloo's all-reduce of a CUDA tensor waits for the current
+stream's work (the graph before it) before it copies the tensor to the
+host, and makes the current stream wait for its copy back before the
+next graph is launched, so no event of this module's own is needed.
 
-The edge-sharded steps run collectives inside their forward and backward
-(``parallel/collectives.py:AssembleRows``), through gloo, between no
-segments of their own: they stay eager, and a batch with an edge group is
-refused here.
+Inside one step the graphs do read pool memory they did not write: a
+segment reads what the segments before it saved (activations for the
+backward, among them). That is sound because a
+key's segments replay in capture order with only their host calls
+between them, and no other rung's replay falls inside a step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Optional, Sequence
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from graphvqa_tpu_torch.ops import gat_round as gr
-
-# per device index: the memory pool of every step graph, and the side stream
-# that warm-ups and captures run on
-_POOLS: Dict[int, Any] = {}
+# per device index: the memory pool of the step graphs (with a weak set of
+# those alive), and the side stream that warm-ups and captures run on
+_POOLS: Dict[int, tuple] = {}
 _STREAMS: Dict[int, torch.cuda.Stream] = {}
 
 
@@ -93,31 +108,144 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return _STREAMS[index]
 
 
-def cuda_graph_capture(fn: Callable[[], Any],
+def _pool(index: int) -> tuple:
+    """(handle, live graphs) of the device's graph pool; a new pool when no
+    graph of the old one is alive. A pool outlives its graphs while their
+    outputs hold its memory, and PyTorch lets no new graph into a pool
+    whose graphs are all gone (a step's graphs go with the step)."""
+    pool = _POOLS.get(index)
+    if pool is None or not pool[1]:
+        pool = _POOLS[index] = (torch.cuda.graph_pool_handle(),
+                                weakref.WeakSet())
+    return pool
+
+
+def cuda_graph_capture(fn: Callable[[Callable], Any],
                        generators: Sequence[torch.Generator],
-                       device: torch.device) -> Callable[[], Any]:
-    """Capture ``fn()`` into a CUDA graph on ``device``'s side stream, in
-    the shared pool, with ``generators`` registered -> ``replay()``, which
-    replays the graph and returns ``fn``'s (static) outputs. A capture that
-    fails raises, naming the op that broke it."""
-    index = _index(device)
-    if index not in _POOLS:
-        _POOLS[index] = torch.cuda.graph_pool_handle()
-    graph = torch.cuda.CUDAGraph()
-    for gen in generators:
-        graph.register_generator_state(gen)
-    # thread_local: the prefetch thread may copy batches to the card
-    # meanwhile, on its own stream
-    with torch.cuda.graph(graph, pool=_POOLS[index],
-                          stream=_side_stream(device),
-                          capture_error_mode="thread_local"):
-        out = fn()
+                       device: torch.device,
+                       mode: str = "thread_local") -> Callable[[], Any]:
+    """Capture ``fn(cut)`` into CUDA graphs on ``device``'s side stream, in
+    the shared pool, each with ``generators`` registered; ``fn`` calls
+    ``cut(host)`` where the body reaches a host call, which ends the
+    current graph, keeps ``host`` and begins the next (module doc).
+    -> ``replay()``, which replays the graphs in order with each kept host
+    call between two and returns ``fn``'s (static) outputs. ``mode`` is
+    CUDA's capture mode: the default lets the prefetch thread copy batches
+    to the card meanwhile, on its own stream; 'relaxed' lets a cut fall on
+    another thread. A capture that fails raises, naming the op that broke
+    it."""
+    pool, live = _pool(_index(device))
+    stream = _side_stream(device)
+    graphs: List[torch.cuda.CUDAGraph] = []
+    hosts: List[Callable[[], None]] = []
+
+    def begin():
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool, capture_error_mode=mode)
+        graphs.append(graph)
+        live.add(graph)
+
+    def end():
+        # a capture ends on the stream it began on, from any thread
+        with torch.cuda.stream(stream):
+            graphs[-1].capture_end()
+
+    def cut(host):
+        end()
+        hosts.append(host)
+        begin()
+
+    # as torch.cuda.graph: the pool starts from what the cache can free
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    begin()
+    try:
+        with torch.cuda.stream(stream):
+            out = fn(cut)
+    finally:
+        end()
 
     def replay():
-        graph.replay()
+        graphs[0].replay()
+        for host, graph in zip(hosts, graphs[1:]):
+            host()
+            graph.replay()
         return out
 
     return replay
+
+
+@dataclasses.dataclass
+class _Run:
+    """A body being run by :class:`StepGraphs` outside a replay: its key's
+    host-call buffers (in call order), the capture's ``cut`` (None in a
+    warm-up, whose host calls run at once), and the buffers handed out and
+    host calls made so far."""
+    buffers: list
+    cut: Optional[Callable] = None
+    at: int = 0
+    calls: int = 0
+
+
+# the run in progress: a module's, not a thread's, because a cut in a
+# backward is reached on autograd's device thread
+_RUN: Optional[_Run] = None
+
+
+@contextlib.contextmanager
+def _running(run: _Run):
+    global _RUN
+    before, _RUN = _RUN, run
+    try:
+        yield run
+    finally:
+        _RUN = before
+
+
+def stepping() -> bool:
+    """Whether a step body is being warmed up or captured: its collectives
+    through the host are then host calls (:func:`host_call`) on buffers of
+    the step's own (:func:`host_buffer`)."""
+    return _RUN is not None
+
+
+def host_call(fn: Callable[[], None]) -> None:
+    """``fn()`` on the host at this point of a step: at once outside a
+    capture; in one, a cut (module doc), and ``fn`` runs between the two
+    graphs at every replay."""
+    run = _RUN
+    if run is None:
+        fn()
+        return
+    run.calls += 1
+    if run.cut is None:
+        fn()
+    else:
+        run.cut(fn)
+
+
+def host_buffer(like: torch.Tensor) -> torch.Tensor:
+    """The step's own tensor for its next host call, filled with ``like``
+    (inside a warm-up or capture, :func:`stepping`): the warm-up makes one
+    per call, outside the graphs' pool, and the capture takes them again
+    in the same order (module doc)."""
+    run = _RUN
+    if run.at == len(run.buffers):
+        if run.cut is not None:
+            raise RuntimeError(
+                "a host call's buffer first asked for inside a capture: the "
+                "body reached a host call that its warm-up did not")
+        run.buffers.append(torch.empty_like(like))
+    buf = run.buffers[run.at]
+    if buf.shape != like.shape or buf.dtype != like.dtype:
+        raise RuntimeError(
+            f"host call {run.at} takes {tuple(like.shape)} {like.dtype}, its "
+            f"warm-up took {tuple(buf.shape)} {buf.dtype}")
+    run.at += 1
+    return buf.copy_(like)
 
 
 def batch_key(batch) -> tuple:
@@ -157,32 +285,26 @@ def _tensors(obj) -> list:
     return out
 
 
-def _chain(segments: Sequence[Callable[[], Any]],
-           host: Optional[Callable[[], None]]):
-    """Each of ``segments`` in order with ``host()`` between each two -> the
-    first's outputs, or with several segments a tuple of each one's."""
-    outs = [segments[0]()]
-    for segment in segments[1:]:
-        host()
-        outs.append(segment())
-    return outs[0] if len(outs) == 1 else tuple(outs)
-
-
 @dataclasses.dataclass
 class _Graph:
-    """One key's graphs: its static batch, one replay per segment and its
-    backward kernel's counter."""
+    """One key's graphs: its static batch, the replay of its chain, its
+    host calls' buffers and count (from the warm-up) and its backward
+    kernel's counter."""
     static: Any = None
-    replays: Optional[list] = None
+    replay: Optional[Callable] = None
+    buffers: list = dataclasses.field(default_factory=list)
+    host_calls: int = 0
     backward_counter: Optional[torch.Tensor] = None
 
 
 class StepGraphs:
-    """One graph per batch key for a step body (module doc).
-    ``capture_fn(fn, generators, device)`` turns a body into a replay
-    (:func:`cuda_graph_capture`; tests pass their own). ``warm_ups``,
-    ``captures``, ``replays`` count the calls of each kind, and
-    ``capture_seconds`` holds each key's capture time on the host clock."""
+    """One graph, or one chain of graphs cut at the host calls, per batch
+    key for a step body (module doc). ``capture_fn(fn, generators, device,
+    mode)`` turns a body into a replay (:func:`cuda_graph_capture`; tests
+    pass their own). ``warm_ups``, ``captures``, ``replays`` count the
+    calls of each kind, ``capture_seconds`` holds each key's capture time
+    on the host clock and ``segments`` each key's graphs (its host calls +
+    1)."""
 
     def __init__(self, capture_fn: Optional[Callable] = None):
         self.capture_fn = capture_fn or cuda_graph_capture
@@ -190,70 +312,80 @@ class StepGraphs:
         self.bound: tuple = ()
         self.warm_ups = self.captures = self.replays = 0
         self.capture_seconds: Dict[tuple, float] = {}
+        self.segments: Dict[tuple, int] = {}
 
     def __call__(self, body, batch,
                  generators: Sequence[Optional[torch.Generator]] = (),
-                 bind: Sequence[Any] = (),
-                 host: Optional[Callable[[], None]] = None):
-        """``body(batch)`` through the key's graph -> its outputs (the
-        graph's own tensors on a replay: module doc).
-        ``body`` may be a sequence of segments instead: ``body[0](batch)``,
-        then ``host()`` and ``body[1]()``, and so on, each segment a graph
-        of its own and ``host`` run between them on every call -> a tuple
-        of each segment's outputs.
+                 bind: Sequence[Any] = ()):
+        """``body(batch)`` through the key's graphs -> its outputs (the
+        graphs' own tensors on a replay: module doc).
         ``bind``: the objects whose tensors the body reads (the train
         state); ``generators``: those it draws from (None entries skipped)."""
-        if batch.graphs.edge_group is not None:
-            raise ValueError(
-                "an edge-sharded batch runs collectives inside its forward "
-                "and backward, through gloo, which a CUDA graph cannot "
-                "hold: the edge steps of parallel/ stay eager")
-        segments = (body,) if callable(body) else tuple(body)
+        # imported here: ops imports parallel.collectives, which imports
+        # this module
+        from graphvqa_tpu_torch.ops import gat_round as gr
         generators = tuple(g for g in generators if g is not None)
         bound = tuple(bind) + generators
         if len(bound) != len(self.bound) or any(
                 a is not b for a, b in zip(bound, self.bound)):
             self.graphs.clear()
             self.capture_seconds.clear()
+            self.segments.clear()
             self.bound = bound
         key = batch_key(batch)
         entry = self.graphs.get(key)
         if entry is None:
-            self.graphs[key] = _Graph()
+            entry = self.graphs[key] = _Graph()
             self.warm_ups += 1
-            return self._warm_up(segments, batch, host)
-        if entry.replays is None:
-            self._capture(entry, key, segments, batch, generators)
+            return self._warm_up(entry, body, batch)
+        if entry.replay is None:
+            self._capture(entry, key, body, batch, generators)
         else:
             for dst, src in zip(_tensors(entry.static), _tensors(batch)):
                 dst.copy_(src)
-        out = _chain(entry.replays, host)
+        out = entry.replay()
         self.replays += 1
         if entry.backward_counter is not None:
             gr.gat_round_backward.counter = entry.backward_counter
         return out
 
-    def _warm_up(self, segments, batch, host):
-        run = [lambda: segments[0](batch), *segments[1:]]
+    def _warm_up(self, entry, body, batch):
         device = batch.questions.device
-        if device.type != "cuda":
-            return _chain(run, host)
-        stream, current = _side_stream(device), torch.cuda.current_stream()
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            out = _chain(run, host)
-        current.wait_stream(stream)
+        with _running(_Run(entry.buffers)) as run:
+            if device.type != "cuda":
+                out = body(batch)
+            else:
+                stream = _side_stream(device)
+                current = torch.cuda.current_stream()
+                stream.wait_stream(current)
+                with torch.cuda.stream(stream):
+                    out = body(batch)
+                current.wait_stream(stream)
+        entry.host_calls = run.calls
         return out
 
-    def _capture(self, entry, key, segments, batch, generators):
+    def _capture(self, entry, key, body, batch, generators):
+        from graphvqa_tpu_torch.ops import gat_round as gr
         entry.static = map_tensors(torch.clone, batch)
         counter = gr.gat_round_backward.counter
-        device = batch.questions.device
+        cuts = []
+
+        def run(cut):
+            with _running(_Run(entry.buffers, cut)) as r:
+                out = body(entry.static)
+            cuts.append(r.calls)
+            return out
+
         t0 = time.perf_counter()
-        run = [lambda: segments[0](entry.static), *segments[1:]]
-        entry.replays = [self.capture_fn(fn, generators, device)
-                         for fn in run]
+        entry.replay = self.capture_fn(
+            run, generators, batch.questions.device,
+            "relaxed" if entry.host_calls else "thread_local")
+        if cuts[0] != entry.host_calls:
+            raise RuntimeError(
+                f"the capture reached {cuts[0]} host calls, its warm-up "
+                f"{entry.host_calls}: the body is not the same program")
         self.capture_seconds[key] = time.perf_counter() - t0
+        self.segments[key] = entry.host_calls + 1
         self.captures += 1
         if gr.gat_round_backward.counter is not counter:
             entry.backward_counter = gr.gat_round_backward.counter

@@ -47,6 +47,8 @@ from graphvqa_tpu.train.train_state import (
     create_train_state as jax_create_train_state)
 from graphvqa_tpu_torch.models.convert import from_jax_variables
 from graphvqa_tpu_torch.models.pipeline import PipelineModel, init_params
+from graphvqa_tpu_torch.parallel.edge_sharded import make_edge_eval_step
+from graphvqa_tpu_torch.parallel.mesh import Mesh
 from graphvqa_tpu_torch.train.graphs import StepGraphs, batch_key
 from graphvqa_tpu_torch.train.loop import (
     make_eval_step, make_train_step, train_one_epoch)
@@ -412,6 +414,9 @@ def test_eval_graphs_per_key_and_outputs_of_their_own(monkeypatch):
 
 
 def test_eager_on_the_cpu_and_edge_shards_refused(monkeypatch):
+    """Eager on the CPU and with ``capture=False``; with a capture the edge
+    eval step builds graphs and StepGraphs takes an edge-sharded batch (the
+    name is the refusal's that this replaced)."""
     jcfg, cfg = _family("gat")
     model = _model(cfg)
     assert make_train_step(model, cfg).graphs is None
@@ -419,8 +424,14 @@ def test_eager_on_the_cpu_and_edge_shards_refused(monkeypatch):
     _inject(monkeypatch, FakeCapture())
     assert make_train_step(model, cfg, capture=False).graphs is None
     assert make_eval_step(model, cfg, capture=False).graphs is None
+    mesh = Mesh(data=1, edge=2, rank=0)
+    assert make_edge_eval_step(model, cfg, mesh).graphs is not None
+    assert make_edge_eval_step(model, cfg, mesh, capture=False).graphs is None
     batch = _batch(jcfg)
     sharded = dataclasses.replace(batch, graphs=dataclasses.replace(
         batch.graphs, edge_group=object()))
-    with pytest.raises(ValueError, match="edge-sharded"):
-        StepGraphs(FakeCapture())(lambda b: b, sharded)
+    graphs = StepGraphs(FakeCapture())
+    for _ in range(3):
+        assert graphs(lambda b: b.questions * 2, sharded).equal(
+            batch.questions * 2)
+    assert (graphs.warm_ups, graphs.captures, graphs.replays) == (1, 1, 2)

@@ -851,3 +851,88 @@ def test_captured_steps_equal_the_eager_ones():
             assert torch.equal(got[0][k], v), k
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def test_captured_edge_step_on_a_one_rank_nccl_group(tmp_path):
+    """The edge-sharded train step and eval request on a one-rank NCCL
+    group, given to the mesh as its world and edge group with the batches
+    sharded at K=1, so that every pmax, row assembly and the step's
+    all-reduce is an NCCL call: each key is one graph (no cut), its replay
+    issues no dist.all_reduce from Python, and three train steps (warm-up,
+    capture, replay) and three requests equal the eager ones bit for bit
+    under deterministic algorithms, both kernels counted once per round in
+    every step."""
+    import torch.distributed as dist
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.parallel.edge_sharded import (
+        make_dp_edge_train_step, make_edge_eval_step, prepare_dp_edge_batch)
+    from graphvqa_tpu_torch.parallel.mesh import Mesh
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = _device()
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    all_reduce, calls = dist.all_reduce, []
+
+    def counted(*args, **kwargs):
+        calls[-1] += 1
+        return all_reduce(*args, **kwargs)
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.all_reduce = counted
+    try:
+        group = dist.group.WORLD
+        mesh = Mesh(1, 1, 0, world_group=group, edge_group=group)
+        cfg, b0 = tiny_train_case(seed=0)
+        _, b1 = tiny_train_case(seed=1)
+        batches = [b.to(dev) for b in prepare_dp_edge_batch([b0, b1, b0],
+                                                            mesh)]
+        rounds = cfg.model.engine.num_rounds
+        # the forward's MetaLayer assembly and each round's pmax and
+        # assembly, the backward's assemblies, the step's all-reduce
+        forward = 1 + 2 * rounds
+        train = forward + 1 + rounds + 1
+        runs = {}
+        for capture in (True, False):
+            model = build_model(cfg.model, device=dev, seed=3)
+            state = create_train_state(model, lr=1e-3)
+            step = make_dp_edge_train_step(model, cfg, mesh, capture=capture)
+            gen = torch.Generator(device=dev).manual_seed(4)
+            losses, reduces = [], []
+            for batch in batches:
+                f0, g0 = launch_counts()
+                calls.append(0)
+                state, m = step(state, batch, gen)
+                losses.append(float(m["total"]))
+                reduces.append(calls[-1])
+                assert (launch_counts()[0] - f0,
+                        launch_counts()[1] - g0) == (rounds, rounds)
+            evals = make_edge_eval_step(model, cfg, mesh, capture=capture)
+            answers = []
+            for batch in batches:
+                calls.append(0)
+                answers.append(evals(batch))
+                reduces.append(calls[-1])
+            runs[capture] = (losses, reduces, answers, step.graphs,
+                             evals.graphs,
+                             {n: t.detach().clone()
+                              for n, t in model.state_dict().items()})
+        cap, eager = runs[True], runs[False]
+        assert eager[3] is None and eager[4] is None
+        assert eager[1] == [train] * 3 + [forward] * 3
+        # the warm-up and the capture issue the collectives, the replay none
+        assert cap[1] == [train, train, 0, forward, forward, 0]
+        for graphs in cap[3:5]:
+            assert (graphs.warm_ups, graphs.captures, graphs.replays,
+                    list(graphs.segments.values())) == (1, 1, 2, [1])
+        assert cap[0] == eager[0]
+        for n, t in eager[5].items():
+            assert torch.equal(cap[5][n], t), n
+        for got, want in zip(cap[2], eager[2]):
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[2], want[2])
+            for k, v in want[0].items():
+                assert torch.equal(got[0][k], v), k
+    finally:
+        dist.all_reduce = all_reduce
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()

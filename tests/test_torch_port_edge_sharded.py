@@ -7,7 +7,11 @@ and eval steps run on spawned gloo ranks (``tests/torch_port_dist.py``),
 started before the JAX side compiles: every family JAX's own edge tests
 cover (gat, gcn, gine, lcgn) at data 1 x edge 2, gat with 2 steps per
 call, gat at data 2 x edge 2 on two distinct batches, the edge eval step,
-and validate at data 2 x edge 2. JAX's edge steps run on its conftest's
+and validate at data 2 x edge 2; then gat's steps captured, with
+``tests/torch_port_dist.py``'s FakeCapture installed in each rank (three
+steps at 1 x 2 and at 2 x 2, K=2, three eval requests), held bitwise to
+the eager ones and to JAX's, with one segment per host collective + 1 and
+the eager step's collectives in order. JAX's edge steps run on its conftest's
 emulated host devices; LCGN's context features are one fixed draw on both
 sides (``tests/test_torch_port_engines.py``). The bounds of the train steps
 are ``tests/test_torch_port_parallel.py``'s; the eval step's: greedy tokens
@@ -192,13 +196,22 @@ def edge_run(tmp_path_factory):
             noise=None if noise is None else torch.from_numpy(noise)))
     jcfg, variables, jb, _ = cases["gat"]
     jb2 = _batch(61, jcfg)
+    pb, pb2 = port_batch(jb), port_batch(jb2)
     gat = dict(plan2[0])
-    plan2.append(dict(gat, batches=[[port_batch(jb), port_batch(jb2)]]))
-    plan2.append(dict(kind="eval", data=1, edge=2, cfg=gat["cfg"],
-                      state_dict=gat["state_dict"], batch=port_batch(jb)))
+    plan2.append(dict(gat, batches=[[pb, pb2]]))
+    evals = dict(kind="eval", data=1, edge=2, cfg=gat["cfg"],
+                 state_dict=gat["state_dict"], batch=pb)
+    plan2.append(evals)
+    # captured (FakeCapture): three steps (warm-up, capture, replay) and
+    # the same eager; K=2 (the warm-up, then the capture); three requests
+    three = dict(gat, k=1, batches=[[pb, pb2, pb]])
+    plan2 += [dict(three, capture=True), three,
+              dict(gat, batches=[[pb, pb2]], capture=True),
+              dict(evals, capture=True, requests=3)]
     vcase = validate_case(tmp, 2, 2, tmp / "ranks4")
-    plan4 = [dict(gat, data=2, batches=[[port_batch(jb)], [port_batch(jb2)]]),
-             vcase]
+    grid = dict(gat, data=2, k=1, batches=[[pb] * 3, [pb2] * 3])
+    plan4 = [dict(gat, data=2, batches=[[pb], [pb2]]), vcase,
+             dict(grid, capture=True), grid]
     run2 = torch_port_dist.start(2, tmp / "run2", plan2)
     run4 = torch_port_dist.start(4, tmp / "run4", plan4)
 
@@ -214,6 +227,12 @@ def edge_run(tmp_path_factory):
                 state, m = step(jax_state(variables), batch,
                                 jax.random.key(7))
         want[kind] = (to_port(state, variables, kind), m)
+        if kind == "gat":
+            # the captured three steps' reference: the step twice more
+            state, _ = step(state, prepare_dp_edge_batch([jb2], mesh2),
+                            jax.random.key(7))
+            state, m = step(state, batch, jax.random.key(7))
+            want["gat_three"] = (to_port(state, variables, "gat"), m)
     jcfg, variables, _, _ = cases["gat"]
     model, jc = JaxPipelineModel(jcfg), jax_config(jcfg)
     state, m = make_dp_edge_train_step(model, jc, mesh2,
@@ -225,12 +244,28 @@ def edge_run(tmp_path_factory):
         jax_state(variables), prepare_edge_eval_batch(jb, mesh2),
         jax.random.key(13))
     mesh4 = jax_make_mesh(data=2, edge=2, devices=jax.devices()[:4])
-    state, m = make_dp_edge_train_step(model, jc, mesh4)(
-        jax_state(variables), prepare_dp_edge_batch([jb, jb2], mesh4),
-        jax.random.key(7))
+    step = make_dp_edge_train_step(model, jc, mesh4)
+    batch = prepare_dp_edge_batch([jb, jb2], mesh4)
+    state, m = step(jax_state(variables), batch, jax.random.key(7))
     want["gat_2x2"] = (to_port(state, variables, "gat"), m)
+    for _ in range(2):
+        state, m = step(state, batch, jax.random.key(7))
+    want["gat_2x2_three"] = (to_port(state, variables, "gat"), m)
     return dict(want=want, ranks2=torch_port_dist.collect(run2),
                 ranks4=torch_port_dist.collect(run4), vcase=vcase)
+
+
+# the cases' places in each rank's results (edge_run's plans)
+EAGER_K2, EVAL = len(FAMILIES), len(FAMILIES) + 1
+CAPTURED_THREE, EAGER_THREE, CAPTURED_K2, CAPTURED_EVAL = (
+    len(FAMILIES) + i for i in range(2, 6))
+GRID_CAPTURED, GRID_EAGER = 2, 3
+
+# host calls of the shrunk gat (2 rounds) at data x edge: the forward's
+# MetaLayer assembly and each round's pmax and assembly, the backward's
+# assemblies, the step's all-reduce
+FORWARD_CUTS = 1 + 2 * 2
+TRAIN_CUTS = FORWARD_CUTS + (1 + 2) + 1
 
 
 @pytest.mark.parametrize("kind", FAMILIES)
@@ -297,3 +332,79 @@ def test_validate_at_data_times_edge_matches_one_process(edge_run, tmp_path):
     gathered dump holds each question once."""
     assert_validate_matches(edge_run["vcase"],
                             [r[1] for r in edge_run["ranks4"]], tmp_path)
+
+
+# --- the steps captured (FakeCapture in each rank) ---------------------------
+
+def _assert_bitwise(got, want):
+    assert got["call_metrics"] == want["call_metrics"]
+    for part in ("params", "mu", "nu", "stats", "grads"):
+        assert got[part].keys() == want[part].keys()
+        for name, w in want[part].items():
+            g = got[part][name]
+            assert (g is None and w is None) or torch.equal(g, w), \
+                f"{part} {name}"
+
+
+@pytest.mark.parametrize("grid", ["1x2", "1x2-k2", "2x2"])
+def test_captured_edge_steps_equal_the_eager_ones_bitwise(edge_run, grid):
+    ranks, cap, eager, calls = {
+        "1x2": ("ranks2", CAPTURED_THREE, EAGER_THREE, (1, 1, 2)),
+        "1x2-k2": ("ranks2", CAPTURED_K2, EAGER_K2, (1, 1, 1)),
+        "2x2": ("ranks4", GRID_CAPTURED, GRID_EAGER, (1, 1, 2))}[grid]
+    for rank in edge_run[ranks]:
+        assert rank[cap]["graphs"] == calls
+        assert rank[eager]["graphs"] is None
+        _assert_bitwise(rank[cap], rank[eager])
+
+
+@pytest.mark.parametrize("grid", ["1x2", "1x2-k2", "2x2"])
+def test_captured_edge_steps_match_jax(edge_run, grid):
+    ranks, i, want, total = {
+        "1x2": ("ranks2", CAPTURED_THREE, "gat_three", 3),
+        "1x2-k2": ("ranks2", CAPTURED_K2, "gat_k2", 6),
+        "2x2": ("ranks4", GRID_CAPTURED, "gat_2x2_three", 6)}[grid]
+    state, metrics = edge_run["want"][want]
+    for rank in edge_run[ranks]:
+        assert_step_matches(rank[i], state, metrics)
+        assert rank[i]["metrics"]["short_answer_total"] == total
+
+
+def test_captured_edge_eval_step_matches_jax_and_eager(edge_run):
+    vec, prog, att = edge_run["want"]["eval"]
+    for rank in edge_run["ranks2"]:
+        got = rank[CAPTURED_EVAL]
+        assert got["graphs"] == (1, 1, 2)
+        for out in got["requests"]:
+            np.testing.assert_array_equal(out["program_tokens"].numpy(),
+                                          np.asarray(prog))
+            np.testing.assert_array_equal(out["vectors"]["sa_pred"].numpy(),
+                                          np.asarray(vec["sa_pred"]))
+            np.testing.assert_allclose(out["vectors"]["sa_score"].numpy(),
+                                       np.asarray(vec["sa_score"]),
+                                       rtol=1e-4, atol=5e-5)
+            np.testing.assert_allclose(out["node_attention"].numpy(),
+                                       np.asarray(att), rtol=0, atol=1e-5)
+            eager = rank[EVAL]
+            assert torch.equal(out["program_tokens"], eager["program_tokens"])
+            assert torch.equal(out["node_attention"], eager["node_attention"])
+            for k, v in eager["vectors"].items():
+                assert torch.equal(out["vectors"][k], v), k
+
+
+@pytest.mark.parametrize("case", ["train-1x2", "train-2x2", "eval"])
+def test_captured_edge_steps_cut_at_each_collective(edge_run, case):
+    """A captured step holds one segment per host call + 1, captured in the
+    relaxed mode, and every call, warm-up, capture and replay, makes the
+    eager step's all-reduces in number and order (op, shape, dtype)."""
+    ranks, cap, eager, cuts = {
+        "train-1x2": ("ranks2", CAPTURED_THREE, EAGER_THREE, TRAIN_CUTS),
+        "train-2x2": ("ranks4", GRID_CAPTURED, GRID_EAGER, TRAIN_CUTS),
+        "eval": ("ranks2", CAPTURED_EVAL, EVAL, FORWARD_CUTS)}[case]
+    for rank in edge_run[ranks]:
+        got = rank[cap]
+        assert (got["cuts"], got["segments"], got["modes"]) == (
+            [cuts], [cuts + 1], ["relaxed"])
+        want = rank[eager]["reduce_calls"][0]
+        assert len(want) == cuts
+        assert got["reduce_calls"] == [want] * len(got["reduce_calls"])

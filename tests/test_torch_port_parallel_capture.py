@@ -19,8 +19,10 @@ batches are ``tests/test_torch_port_parallel.py``'s (float32, dropout off).
   (d) after a replay each rank's ``.grad`` is its own gradient before the
       reduce: the eager step's, and not the other rank's;
   (e) one ``dist.all_reduce`` per step, captured or eager;
-  (f) the edge axis keeps the eager step, and a graph refuses an edge
-      batch.
+  (f) a body's host call cuts its capture into two segments, run in order
+      at every call; the edge axis builds graphs too, and a graph takes an
+      edge batch (``tests/test_torch_port_edge_sharded.py`` captures the
+      edge steps).
 """
 import dataclasses
 
@@ -36,7 +38,8 @@ from graphvqa_tpu.parallel import (
 from graphvqa_tpu_torch.parallel.data_parallel import make_dp_train_step
 from graphvqa_tpu_torch.parallel.mesh import Mesh
 from graphvqa_tpu_torch.train import loop
-from graphvqa_tpu_torch.train.graphs import StepGraphs
+from graphvqa_tpu_torch.train.graphs import (
+    StepGraphs, batch_key, host_call)
 from tests import torch_port_dist
 from tests.test_torch_port_parallel import (
     LR, WD, assert_step_matches, jax_config, jax_state, port_config,
@@ -133,32 +136,37 @@ def test_one_all_reduce_per_dp_step(capture_run):
 
 
 def test_segments_run_in_order_with_the_host_call_between():
-    """A two-segment body through StepGraphs with FakeCapture: the warm-up,
-    the capture's first replay and a later replay each run segment A, the
-    host call, then segment B, once each, and return both outputs."""
+    """A body with one host call through StepGraphs with FakeCapture: the
+    warm-up, the capture and a later replay each run part A, the host
+    call, then part B, once each; the key holds two segments, captured in
+    the relaxed mode that lets a cut fall on another thread."""
     seen = []
-    graphs = StepGraphs(torch_port_dist.FakeCapture())
+    capture = torch_port_dist.FakeCapture()
+    graphs = StepGraphs(capture)
     batch = port_batch(random_qa_batch(seed=1, num_graphs=2, dense=True,
                                        cfg=shrunk_config()))
 
-    def segment_a(b):
+    def body(b):
         seen.append("a")
-        return b.questions.float().sum()
-
-    def segment_b():
+        a = b.questions.float().sum()
+        host_call(lambda: seen.append("host"))
         seen.append("b")
-        return torch.ones(2)
+        return a, torch.ones(2)
 
     for _ in range(3):
-        a, b = graphs((segment_a, segment_b), batch,
-                      host=lambda: seen.append("host"))
+        a, b = graphs(body, batch)
         assert float(a) == float(batch.questions.float().sum())
         assert torch.equal(b, torch.ones(2))
     assert seen == ["a", "host", "b"] * 3
     assert (graphs.warm_ups, graphs.captures, graphs.replays) == (1, 1, 2)
+    assert graphs.segments == {batch_key(batch): 2}
+    assert (capture.cuts, capture.modes) == ([1], ["relaxed"])
 
 
 def test_edge_axis_stays_eager_and_graphs_refuse_edge_batches(monkeypatch):
+    """The edge axis now builds graphs as the DP step does, and StepGraphs
+    takes an edge-sharded batch: warm-up, capture, replay (the name is the
+    refusal's that this replaced)."""
     monkeypatch.setattr(loop, "_graphs", torch_port_dist.fake_graphs)
     jcfg = shrunk_config()
     cfg = port_config(jcfg)
@@ -168,11 +176,15 @@ def test_edge_axis_stays_eager_and_graphs_refuse_edge_batches(monkeypatch):
     assert make_dp_train_step(model, cfg, Mesh(data=1, edge=1, rank=0),
                               capture=False).graphs is None
     assert make_dp_train_step(model, cfg, Mesh(data=1, edge=2, rank=0)
-                              ).graphs is None
+                              ).graphs is not None
+    assert make_dp_train_step(model, cfg, Mesh(data=1, edge=2, rank=0),
+                              capture=False).graphs is None
     batch = port_batch(random_qa_batch(seed=2, num_graphs=2, dense=True,
                                        cfg=jcfg))
     sharded = dataclasses.replace(batch, graphs=dataclasses.replace(
         batch.graphs, edge_group=object()))
-    with pytest.raises(ValueError, match="edge-sharded"):
-        StepGraphs(torch_port_dist.FakeCapture())(
-            (lambda b: b, lambda: None), sharded, host=lambda: None)
+    graphs = StepGraphs(torch_port_dist.FakeCapture())
+    for _ in range(3):
+        assert graphs(lambda b: b.questions + 1, sharded).equal(
+            batch.questions + 1)
+    assert (graphs.warm_ups, graphs.captures, graphs.replays) == (1, 1, 2)

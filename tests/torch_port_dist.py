@@ -15,15 +15,20 @@ on its own (data, edge) mesh of the world; every rank saves its results to
     the rank), optional LCGN ``noise``; the result: parameters, Adam
     moments, running statistics, the last call's metrics and every call's,
     this rank's own gradients, its shard's edges_per_graph, each call's
-    ``dist.all_reduce`` calls and the step graphs' (warm-ups, captures,
-    replays);
-  * eval: ``cfg``, ``state_dict``, ``batch``; the eval step's outputs;
+    ``dist.all_reduce`` calls (their number, and each one's op, shape and
+    dtype in order) and the step graphs' (warm-ups, captures, replays),
+    segments per key and FakeCapture's cuts and modes;
+  * eval: ``cfg``, ``state_dict``, ``batch``, optional ``capture`` and
+    ``requests`` (calls of the step on the batch, default 1); the last
+    request's outputs, every request's, their ``dist.all_reduce`` calls
+    and the graphs' record as for train;
   * validate: ``cfg``, ``state_dict``, ``data_root``, ``split``,
     ``batch_size`` and ``out`` (a directory for rank 0's dumps); the
     result dict of ``validate``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import pathlib
 
@@ -59,26 +64,46 @@ def spawn(world: int, workdir, plan, device: str = "cpu") -> list:
 
 
 class FakeCapture:
-    """A capture function for the CPU: the 'graph' reruns the body and
-    writes its results into the tensors of its first run, as a replay
-    writes a graph's static outputs (capture itself runs nothing)."""
+    """A capture function for the CPU, which has no graphs. Its 'capture'
+    runs the body once for real, as a capture and the replay after it make
+    one step, and each host call at once: a cut, counted. Each later
+    'replay' reruns the body, its host calls at once, into the tensors of
+    the first run, as a replay writes a graph's static outputs, and raises
+    unless it reached the capture's cuts. ``calls`` holds each capture's
+    generators, ``modes`` its capture mode and ``cuts`` its cuts."""
 
     def __init__(self):
-        self.calls = []
+        self.calls, self.modes, self.cuts = [], [], []
 
-    def __call__(self, fn, generators, device):
+    def __call__(self, fn, generators, device, mode):
         from graphvqa_tpu_torch.train.graphs import _tensors
         self.calls.append(tuple(generators))
-        static = []
+        self.modes.append(mode)
+
+        def run():
+            cuts = []
+
+            def cut(host):
+                cuts.append(host)
+                host()
+
+            return fn(cut), len(cuts)
+
+        static, cuts = run()
+        self.cuts.append(cuts)
+        fresh = [True]
 
         def replay():
-            out = fn()
-            if not static:
-                static.append(out)
-            else:
-                for dst, src in zip(_tensors(static[0]), _tensors(out)):
-                    dst.copy_(src)
-            return static[0]
+            if fresh:
+                fresh.clear()
+                return static
+            out, again = run()
+            if again != cuts:
+                raise RuntimeError(f"a replay reached {again} cuts, its "
+                                   f"capture {cuts}")
+            for dst, src in zip(_tensors(static), _tensors(out)):
+                dst.copy_(src)
+            return static
 
         return replay
 
@@ -147,22 +172,13 @@ def _train(case, dev):
     gen = torch.Generator(device=dev).manual_seed(data_seed(0, mesh))
     ctx = torch.Generator(device=dev).manual_seed(data_seed(1, mesh))
     before = launch_counts()
-    all_reduce, reduces = dist.all_reduce, []
-
-    def counted(*args, **kwargs):
-        reduces[-1] += 1
-        return all_reduce(*args, **kwargs)
-
-    dist.all_reduce = counted
-    calls = []
-    try:
+    calls, reduces = [], []
+    with counted_all_reduces(reduces):
         for i in range(0, len(batches), K):
-            reduces.append(0)
+            reduces.append([])
             group = batches[i:i + K]
             _, metrics = step(state, group if K > 1 else group[0], gen, ctx)
             calls.append({k: float(v) for k, v in metrics.items()})
-    finally:
-        dist.all_reduce = all_reduce
     graphs = step.graphs
     return dict(
         params={n: _cpu(p) for n, p in model.named_parameters()},
@@ -171,23 +187,66 @@ def _train(case, dev):
         mu={n: _cpu(t) for n, t in state.opt_state["mu"].items()},
         nu={n: _cpu(t) for n, t in state.opt_state["nu"].items()},
         stats={n: _cpu(t) for n, t in state.batch_stats.items()},
-        metrics=calls[-1], call_metrics=calls, all_reduces=reduces,
-        graphs=None if graphs is None else (
-            graphs.warm_ups, graphs.captures, graphs.replays),
+        metrics=calls[-1], call_metrics=calls,
+        all_reduces=[len(r) for r in reduces], reduce_calls=reduces,
         epg_loc=[b.graphs.edges_per_graph for b in batches],
-        launches=tuple(n - b for n, b in zip(launch_counts(), before)))
+        launches=tuple(n - b for n, b in zip(launch_counts(), before)),
+        **graph_record(graphs))
+
+
+@contextlib.contextmanager
+def counted_all_reduces(calls):
+    """Each ``dist.all_reduce`` call appended to the list ``calls[-1]`` as
+    (op, shape, dtype), in call order."""
+    all_reduce = dist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        calls[-1].append((str(kwargs.get("op", dist.ReduceOp.SUM)),
+                          tuple(tensor.shape), str(tensor.dtype)))
+        return all_reduce(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield
+    finally:
+        dist.all_reduce = all_reduce
+
+
+def graph_record(graphs):
+    """A step's graphs (None when eager): (warm-ups, captures, replays),
+    each key's segments, and the FakeCapture's cuts and capture modes."""
+    if graphs is None:
+        return dict(graphs=None)
+    return dict(graphs=(graphs.warm_ups, graphs.captures, graphs.replays),
+                segments=sorted(graphs.segments.values()),
+                cuts=graphs.capture_fn.cuts, modes=graphs.capture_fn.modes)
 
 
 def _eval(case, dev):
     from graphvqa_tpu_torch.parallel.edge_sharded import (
         make_edge_eval_step, prepare_edge_eval_batch)
     from graphvqa_tpu_torch.parallel.mesh import make_mesh
+    from graphvqa_tpu_torch.train import loop
     mesh = make_mesh(case["data"], case["edge"])
     model = _model(case, dev)
     batch = prepare_edge_eval_batch(case["batch"], mesh).to(dev)
-    vec, prog, att = make_edge_eval_step(model, case["cfg"], mesh)(batch)
-    return dict(vectors={k: _cpu(v) for k, v in vec.items()},
-                program_tokens=_cpu(prog), node_attention=_cpu(att))
+    capture = case.get("capture", False)
+    graphs_fn = loop._graphs
+    loop._graphs = fake_graphs if capture else graphs_fn
+    try:
+        step = make_edge_eval_step(model, case["cfg"], mesh, capture=capture)
+    finally:
+        loop._graphs = graphs_fn
+    outs, reduces = [], []
+    with counted_all_reduces(reduces):
+        for _ in range(case.get("requests", 1)):
+            reduces.append([])
+            vec, prog, att = step(batch)
+            outs.append(dict(
+                vectors={k: _cpu(v) for k, v in vec.items()},
+                program_tokens=_cpu(prog), node_attention=_cpu(att)))
+    return dict(outs[-1], requests=outs, reduce_calls=reduces,
+                **graph_record(step.graphs))
 
 
 def _validate(case, dev):
