@@ -1,0 +1,9 @@
+"""Share of the traced sub-window of the eval cell during which no
+operation ran on the card (its operations' intervals merged)."""
+
+
+def read(run):
+    if run.mode != "eval" or not run.trace or not run.trace["ops"]:
+        return None
+    t = run.trace
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
