@@ -157,7 +157,10 @@ def get_args_parser():
                         "shape, captured anew in each process")
     p.add_argument("--profile-dir", default="",
                    help="trace a few steps of the first epoch with "
-                        "torch.profiler into DIR/trace.json")
+                        "torch.profiler into DIR/trace.json, and turn on "
+                        "the program's spans (gvqa.*, in that trace) and "
+                        "device segments: each epoch and validation then "
+                        "prints every segment's device ms per step")
     p.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
                    help="compute dtype of the transformer and engine "
                         "products (parameters stay float32); default: the "
@@ -324,6 +327,20 @@ def _print_launches(what, before):
           f"gat_round_backward {now[1] - before[1]}")
 
 
+def _print_segments(what) -> None:
+    """Each device segment's ms per step since the last reset (tracing on:
+    ``--profile-dir``), then a reset for the next report."""
+    from graphvqa_tpu_torch.core import profiling
+    if not profiling.enabled():
+        return
+    steps, seconds = profiling.read_segments()
+    profiling.reset_segments()
+    per = ", ".join(f"{name} {1e3 * s / max(steps, 1):.3f}"
+                    for name, s in seconds.items() if s)
+    print(f"device segments ({what}, ms per step over {steps} steps): "
+          f"{per or 'none'}")
+
+
 def _merged_meta(metas):
     """The metas of K batches as one: lists concatenated, counts summed."""
     merged = {k: [x for m in metas for x in m[k]]
@@ -337,6 +354,7 @@ def main(args):
 
     import torch.distributed as dist
 
+    from graphvqa_tpu_torch.core import profiling
     from graphvqa_tpu_torch.core.native import packer_name
     from graphvqa_tpu_torch.data import (
         GQADataset, build_scene_graph_vocab, build_text_vocab, tokenize)
@@ -359,6 +377,9 @@ def main(args):
     from graphvqa_tpu_torch.train.train_state import create_train_state
 
     _check_jax_flags(args)
+    # the program's spans and segments follow --profile-dir, set before any
+    # step is built so that every graph holds the stamps
+    profiling.enable(bool(args.profile_dir))
     dev = maybe_init_distributed(args.device, args.dist_backend)
     _check_mesh(args, dist.get_world_size() if dist.is_initialized() else 1)
     mesh = make_mesh(args.data_parallel, args.edge_parallel)
@@ -465,6 +486,7 @@ def main(args):
                 generator=ctx_generator, mesh=mesh)
             print(split, res)
             _print_launches(f"evaluate {split}", before)
+            _print_segments(f"evaluate {split}")
             _print_graphs(f"evaluate {split}", eval_step, mesh)
         return
 
@@ -517,6 +539,7 @@ def main(args):
                        for k in collate_stats}
         print(f"collate layout stats (this epoch): {epoch_stats}")
         _print_launches(f"train epoch {epoch}", before)
+        _print_segments(f"train epoch {epoch}")
         _print_graphs(f"train epoch {epoch}", train_step, mesh)
         if (epoch + 1) % args.validate_every == 0:
             before = _launches()
@@ -527,6 +550,7 @@ def main(args):
                            generator=ctx_generator, mesh=mesh)
             print(args.val_split, res)
             _print_launches(f"validate epoch {epoch}", before)
+            _print_segments(f"validate epoch {epoch}")
             _print_graphs(f"validate epoch {epoch}", eval_step, mesh)
         if mesh.is_main:
             save_checkpoint(out_dir / "ckpt", state)

@@ -26,7 +26,8 @@ the collate falls back to it for a graph beyond the dense ladder.
 
 The containers also carry numpy arrays: the collate's worker processes build
 them so (``to_numpy``) and the parent wraps them back (``from_numpy``),
-zero-copy both ways.
+zero-copy both ways. ``.to`` is the span ``gvqa.batch.to_device`` when the
+program's tracing is on (``core/profiling.py``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from graphvqa_tpu_torch.core import profiling
 from graphvqa_tpu_torch.core.device import DeviceLike, resolve_device
 
 
@@ -53,7 +55,8 @@ def _map_arrays(obj, fn, kind):
 
 
 def _move(obj, device: torch.device):
-    return _map_arrays(obj, lambda t: t.to(device), torch.Tensor)
+    with profiling.span("gvqa.batch.to_device"):
+        return _map_arrays(obj, lambda t: t.to(device), torch.Tensor)
 
 
 def to_numpy(obj):

@@ -19,7 +19,9 @@ from __future__ import annotations
 import json
 import logging
 import multiprocessing as mp
+import os
 import pathlib
+import time
 from collections import deque
 from typing import Dict, Iterator, Optional, Sequence
 
@@ -198,8 +200,10 @@ class GQADataset:
                      num_workers: int = 0, size_bucket_windows: int = 0,
                      permute_group: int = 1) -> Iterator[tuple]:
         """Yield (meta, QABatch) pairs in ``batch_order``; meta carries the
-        ids, texts, answers and types for the result dump, ``real_count``
-        and the batch's ``layout``.
+        ids, texts, answers and types for the result dump, ``real_count``,
+        the batch's ``layout``, and ``collate_s`` and ``collate_pid``: the
+        seconds its collate took on the host clock, and the process that
+        ran it (a pool worker, or this process with 0 workers).
 
         ``shard_index/num_shards``: per-process input sharding.
         ``size_bucket_windows`` W > 0 (shuffled epochs): each window of W
@@ -283,7 +287,10 @@ def build_batch(ds: GQADataset, idx, batch_cfg: BatchConfig,
                 max_steps: int) -> tuple:
     """One (meta, QABatch) from dataset indices. A ragged batch repeats its
     last item up to the static batch size; an empty index set (a shard's
-    padding batch) templates from row 0 with real_count 0."""
+    padding batch) templates from row 0 with real_count 0. The meta's
+    ``collate_s`` is this call's time on the host clock, ``collate_pid``
+    the process that ran it."""
+    t0 = time.perf_counter()
     items = [ds[int(i)] for i in idx]
     real = len(items)
     if not items:
@@ -306,6 +313,8 @@ def build_batch(ds: GQADataset, idx, batch_cfg: BatchConfig,
             meta["layout"] = "dense_bumped"
         else:
             meta["layout"] = "dense"
+    meta["collate_s"] = time.perf_counter() - t0
+    meta["collate_pid"] = os.getpid()
     return meta, batch
 
 

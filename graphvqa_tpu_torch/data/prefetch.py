@@ -12,13 +12,16 @@ import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
 
+from graphvqa_tpu_torch.core import profiling
+
 T = TypeVar("T")
 
 _STOP = object()
 
 
 def prefetch(iterable: Iterable[T], depth: int = 4) -> Iterator[T]:
-    """Iterate ``iterable`` on a background thread with a bounded queue."""
+    """Iterate ``iterable`` on a background thread with a bounded queue;
+    the consumer's wait for each item is the span ``gvqa.prefetch.get``."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: list = []
 
@@ -34,7 +37,8 @@ def prefetch(iterable: Iterable[T], depth: int = 4) -> Iterator[T]:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with profiling.span("gvqa.prefetch.get"):
+            item = q.get()
         if item is _STOP:
             break
         yield item

@@ -19,6 +19,12 @@ names), so ``load_state_dict`` takes a reference checkpoint and
 LCGN draws its initial context features at every forward (training and
 evaluation) from ``ctx_generator``, a ``torch.Generator`` that the caller
 passes; an lcgn model given none raises.
+
+With the program's tracing on (``core/profiling.py``) both paths begin a
+step's device segments and stamp the end of each stage: ``encoders``
+(scene graph and question), ``program_decoder``, ``engine`` (the execution
+engine with the GAT/GCN/GINE/LCGN engine), ``classifier`` (pooling and
+head) and ``full_answer_decoder``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 from torch import nn
 
 from graphvqa_tpu_torch.config import ModelConfig
+from graphvqa_tpu_torch.core import profiling
 from graphvqa_tpu_torch.core.device import DeviceLike, resolve_device
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.nn.decoders import FullAnswerDecoder, ProgramDecoder
@@ -139,19 +146,26 @@ class PipelineModel(nn.Module):
                 raise ValueError("deterministic=False needs a generator")
             gen = generator
         graph, emb = batch.graphs, self.text_vocab_embedding
+        dev = batch.questions.device
+        profiling.begin(dev)
         x_enc, edge_enc = self.scene_graph_encoder(graph)
         memory = self._encode_questions(batch, gen)
+        profiling.stamp("encoders", dev)
         program_logits, instr = self.program_decoder(memory, batch.programs,
                                                      emb, gen)
+        profiling.stamp("program_decoder", dev)
         bitmap = self._execute(graph, x_enc, instr)
         x_exec, edge_attention = self._engine(
             graph, x_enc, edge_enc, instr, memory, gen, ctx_generator,
             use_running_average, return_edge_attention)
+        profiling.stamp("engine", dev)
         logits, gate = self._classify(graph, x_exec, memory, gen)
+        profiling.stamp("classifier", dev)
         fa_logits = None
         if self.cfg.use_full_answer and full_answer:
             fa_logits = self.full_answer_decoder(memory, batch.full_answers,
                                                  emb, gen)
+            profiling.stamp("full_answer_decoder", dev)
         return ModelOutput(short_answer_logits=logits, instr_vectors=instr,
                            program_logits=program_logits,
                            full_answer_logits=fa_logits,
@@ -165,19 +179,25 @@ class PipelineModel(nn.Module):
                ) -> ModelOutput:
         """Greedy-decode forward (the eval path), deterministic but for
         LCGN's draw from ``ctx_generator``."""
-        graph = batch.graphs
+        graph, dev = batch.graphs, batch.questions.device
+        profiling.begin(dev)
         x_enc, edge_enc = self.scene_graph_encoder(graph)
         memory = self._encode_questions(batch)
+        profiling.stamp("encoders", dev)
         program_tokens, instr = self.program_decoder.sample(
             memory, self.text_vocab_embedding)
+        profiling.stamp("program_decoder", dev)
         bitmap = self._execute(graph, x_enc, instr)
         x_exec, _ = self._engine(graph, x_enc, edge_enc, instr, memory,
                                  ctx_generator=ctx_generator)
+        profiling.stamp("engine", dev)
         logits, gate = self._classify(graph, x_exec, memory)
+        profiling.stamp("classifier", dev)
         fa_tokens = None
         if self.cfg.use_full_answer:
             fa_tokens = self.full_answer_decoder.sample(
                 memory, self.text_vocab_embedding)
+            profiling.stamp("full_answer_decoder", dev)
         return ModelOutput(short_answer_logits=logits, instr_vectors=instr,
                            program_tokens=program_tokens,
                            full_answer_tokens=fa_tokens,

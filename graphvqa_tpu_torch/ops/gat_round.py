@@ -115,7 +115,7 @@ def _nvcc() -> str:
     if candidate.exists():
         return str(candidate)
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       + ", ".join(src.name for src in _SOURCES.values()))
+                       "the port's kernels (csrc/)")
 
 
 def load_library() -> KernelLibrary:
@@ -123,11 +123,19 @@ def load_library() -> KernelLibrary:
     ``build/graphvqa_tpu_torch/`` (once per source content; one nvcc per
     source, all started together) and load them."""
     global _library
-    if _library is not None:
-        return _library
+    if _library is None:
+        _library = KernelLibrary(*build_sources(_SOURCES))
+    return _library
+
+
+def build_sources(sources: dict) -> tuple:
+    """nvcc on each ``{key: source}`` into a shared library of its own under
+    ``build/graphvqa_tpu_torch/`` (cached by the source's content and the
+    flags; the builds run in parallel) -> ({key: library path}, the build
+    log, the wall seconds of the builds run)."""
     paths, jobs, logs = {}, {}, []
     t0 = time.perf_counter()
-    for key, src in _SOURCES.items():
+    for key, src in sources.items():
         digest = hashlib.sha256(
             src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
         out = paths[key] = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
@@ -151,9 +159,7 @@ def load_library() -> KernelLibrary:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    _library = KernelLibrary(paths, "\n".join(logs),
-                             time.perf_counter() - t0 if jobs else 0.0)
-    return _library
+    return paths, "\n".join(logs), time.perf_counter() - t0 if jobs else 0.0
 
 
 def _check(name, t, shape, dtypes, device):

@@ -37,6 +37,13 @@ buffer unpacked, Adam, the statistics and metrics written); with an edge
 axis the forward's and the backward's collectives
 (``parallel/edge_sharded.py``) cut it too, into 19 graphs at
 gat_config()'s five GAT rounds.
+
+With the program's tracing on (``core/profiling.py``) the step stamps the
+device segment ``allreduce`` around the all-reduce: over gloo the card's
+time from the end of graph A to the start of graph B, the exposed
+reduction; over NCCL the collective's kernels. The metrics and the buffer's
+packing before it, and its unpacking with Adam after it, go to
+``optimizer``.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from graphvqa_tpu_torch.config import Config
+from graphvqa_tpu_torch.core import profiling
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.models.pipeline import PipelineModel
 from graphvqa_tpu_torch.parallel.collectives import all_reduce_
@@ -161,10 +169,14 @@ def make_dp_train_step(model: PipelineModel, cfg: Config, mesh: Mesh,
         metrics = forward_backward(model, cfg, batch, generator,
                                    ctx_generator, loss_scale=loss_scale)
         own = {n: p.grad for n, p in model.named_parameters()}
+        dev = batch.questions.device
         reduce.pack(metrics)
+        profiling.stamp("optimizer", dev)
         reduce.all_reduce()
+        profiling.stamp("allreduce", dev)
         grads, metrics = reduce.unpack()
         state.update(grads)
+        profiling.stamp("optimizer", dev)
         return own, metrics
 
     def train_step(state: TrainState, batch: QABatch,

@@ -90,6 +90,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from graphvqa_tpu_torch.core import profiling
+
 # per device index: the memory pool of the step graphs (with a weak set of
 # those alive), and the side stream that warm-ups and captures run on
 _POOLS: Dict[int, tuple] = {}
@@ -171,7 +173,8 @@ def cuda_graph_capture(fn: Callable[[Callable], Any],
     def replay():
         graphs[0].replay()
         for host, graph in zip(hosts, graphs[1:]):
-            host()
+            with profiling.span("gvqa.step.host_call"):
+                host()
             graph.replay()
         return out
 
@@ -222,7 +225,8 @@ def host_call(fn: Callable[[], None]) -> None:
         return
     run.calls += 1
     if run.cut is None:
-        fn()
+        with profiling.span("gvqa.step.host_call"):
+            fn()
     else:
         run.cut(fn)
 
@@ -304,12 +308,16 @@ class StepGraphs:
     pass their own). ``warm_ups``, ``captures``, ``replays`` count the
     calls of each kind, ``capture_seconds`` holds each key's capture time
     on the host clock and ``segments`` each key's graphs (its host calls +
-    1)."""
+    1). Each call is the span ``gvqa.step``, around its warm-up, capture,
+    copy of the batch into the static tensors and replay
+    (``core/profiling.py``); the graphs are dropped when tracing is turned
+    on or off, so that none replays with stale instrumentation."""
 
     def __init__(self, capture_fn: Optional[Callable] = None):
         self.capture_fn = capture_fn or cuda_graph_capture
         self.graphs: Dict[tuple, _Graph] = {}
         self.bound: tuple = ()
+        self.traced = profiling.enabled()
         self.warm_ups = self.captures = self.replays = 0
         self.capture_seconds: Dict[tuple, float] = {}
         self.segments: Dict[tuple, int] = {}
@@ -321,29 +329,38 @@ class StepGraphs:
         graphs' own tensors on a replay: module doc).
         ``bind``: the objects whose tensors the body reads (the train
         state); ``generators``: those it draws from (None entries skipped)."""
+        with profiling.span("gvqa.step"):
+            return self._call(body, batch, generators, bind)
+
+    def _call(self, body, batch, generators, bind):
         # imported here: ops imports parallel.collectives, which imports
         # this module
         from graphvqa_tpu_torch.ops import gat_round as gr
         generators = tuple(g for g in generators if g is not None)
         bound = tuple(bind) + generators
-        if len(bound) != len(self.bound) or any(
+        traced = profiling.enabled()
+        if traced != self.traced or len(bound) != len(self.bound) or any(
                 a is not b for a, b in zip(bound, self.bound)):
             self.graphs.clear()
             self.capture_seconds.clear()
             self.segments.clear()
-            self.bound = bound
+            self.bound, self.traced = bound, traced
         key = batch_key(batch)
         entry = self.graphs.get(key)
         if entry is None:
             entry = self.graphs[key] = _Graph()
             self.warm_ups += 1
-            return self._warm_up(entry, body, batch)
+            with profiling.span("gvqa.step.warm_up"):
+                return self._warm_up(entry, body, batch)
         if entry.replay is None:
-            self._capture(entry, key, body, batch, generators)
+            with profiling.span("gvqa.step.capture"):
+                self._capture(entry, key, body, batch, generators)
         else:
-            for dst, src in zip(_tensors(entry.static), _tensors(batch)):
-                dst.copy_(src)
-        out = entry.replay()
+            with profiling.span("gvqa.step.copy_in"):
+                for dst, src in zip(_tensors(entry.static), _tensors(batch)):
+                    dst.copy_(src)
+        with profiling.span("gvqa.step.replay"):
+            out = entry.replay()
         self.replays += 1
         if entry.backward_counter is not None:
             gr.gat_round_backward.counter = entry.backward_counter

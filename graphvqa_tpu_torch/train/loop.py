@@ -31,6 +31,13 @@ step and prints meters (and can trace a window of steps with
 torch.profiler); ``validate`` runs the eval step over batches, prints the
 accuracies (and the bitmap's precision and recall) and writes the result
 and attention dumps the official scorer reads.
+
+With the program's tracing on (``core/profiling.py``) the train step
+stamps the device segments ``loss_backward`` (the loss and the backward)
+and ``optimizer`` (the step's metrics and Adam) after the model's own, and
+the loops mark their waits for a batch (``gvqa.loop.next_batch``), the
+meters' read-back (``gvqa.loop.meters``) and validation's host reads
+(``gvqa.eval.readback``) as spans.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from graphvqa_tpu_torch.config import Config
+from graphvqa_tpu_torch.core import profiling
 from graphvqa_tpu_torch.core.graph import QABatch
 from graphvqa_tpu_torch.models.pipeline import PipelineModel
 from graphvqa_tpu_torch.nn.execution import bitmap_precision_recall
@@ -54,7 +62,6 @@ from graphvqa_tpu_torch.train.losses import total_loss
 from graphvqa_tpu_torch.train.metrics import (
     program_match_vectors, program_string_exact_match_acc,
     reduce_scanned_metrics, topk_accuracy)
-from graphvqa_tpu_torch.train.profiling import ThroughputMeter
 from graphvqa_tpu_torch.train.train_state import TrainState
 
 
@@ -92,6 +99,7 @@ def forward_backward(model: PipelineModel, cfg: Config, batch: QABatch,
         use_full_answer_loss=tc.use_full_answer_loss,
         use_bitmap_loss=tc.use_bitmap_loss)
     (loss if loss_scale == 1.0 else loss * loss_scale).backward()
+    profiling.stamp("loss_backward", batch.questions.device)
     with torch.no_grad():
         sa_correct, sa_total = topk_accuracy(
             out.short_answer_logits, batch.short_answer_label)
@@ -163,6 +171,7 @@ def make_train_step(model: PipelineModel, cfg: Config,
                                    ctx_generator)
         grads = {n: p.grad for n, p in model.named_parameters()}
         state.update(grads)
+        profiling.stamp("optimizer", batch.questions.device)
         return metrics, grads
 
     graphs = _graphs(model, capture)
@@ -258,7 +267,7 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
     pne = AverageMeter("Acc@ProgramNonEmpty", ":4.2f")
     progress = ProgressMeter(num_batches or 0, [losses, sa, pa, pg, pne],
                              prefix=f"Epoch: [{epoch}]")
-    tput = ThroughputMeter(engine_rounds)
+    tput = profiling.ThroughputMeter(engine_rounds)
     pending = []
 
     def rate(correct, total):
@@ -271,7 +280,8 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
                                     for k in _METER_KEYS]))
 
     def drain():
-        rows = torch.stack(pending).tolist() if pending else []
+        with profiling.span("gvqa.loop.meters"):
+            rows = torch.stack(pending).tolist() if pending else []
         for row in rows:
             m = dict(zip(_METER_KEYS, row))
             bsz = int(m["short_answer_total"])
@@ -299,7 +309,8 @@ def train_one_epoch(train_step: Callable, state: TrainState, batches,
     while True:
         f0 = time.perf_counter()
         try:
-            _, batch = next(it)
+            with profiling.span("gvqa.loop.next_batch"):
+                _, batch = next(it)
         except StopIteration:
             break
         data_time += time.perf_counter() - f0
@@ -464,19 +475,27 @@ def validate(eval_step: Callable, batches, cfg: Config, text_vocab=None,
     total_real = 0
 
     i = -1
-    for i, (meta, batch) in enumerate(batches):
+    it = iter(batches)
+    while True:
+        with profiling.span("gvqa.loop.next_batch"):
+            item = next(it, None)
+        if item is None:
+            break
+        i += 1
         if max_batches is not None and i >= max_batches:
             break
+        meta, batch = item
         vec, prog_tokens, node_att = eval_step(batch, generator)
         real = meta.get("real_count", batch.questions.shape[0])
         total_real += real
-        sa_pred_np = _host(vec["sa_pred"])[:real]
-        sa_score_np = _host(vec["sa_score"])[:real]
-        prog_np = _host(prog_tokens)
-        labels = _host(batch.short_answer_label)[:real]
-        match = _host(vec["program_match"])[: real * M]
-        gmatch = _host(vec["program_group_match"])[:real]
-        empty = _host(vec["program_empty"])[: real * M]
+        with profiling.span("gvqa.eval.readback"):
+            sa_pred_np = _host(vec["sa_pred"])[:real]
+            sa_score_np = _host(vec["sa_score"])[:real]
+            prog_np = _host(prog_tokens)
+            labels = _host(batch.short_answer_label)[:real]
+            match = _host(vec["program_match"])[: real * M]
+            gmatch = _host(vec["program_group_match"])[:real]
+            empty = _host(vec["program_empty"])[: real * M]
         sa.update(100.0 * float((sa_pred_np == labels).sum()) / max(real, 1),
                   real)
         pa.update(100.0 * float(match.sum()) / max(real * M, 1), real * M)

@@ -936,3 +936,120 @@ def test_captured_edge_step_on_a_one_rank_nccl_group(tmp_path):
         dist.all_reduce = all_reduce
         torch.use_deterministic_algorithms(False)
         dist.destroy_process_group()
+
+
+def _gqa_batch(cfg, B, seed):
+    """B GQA-shaped random scene graphs (~17 nodes, ~90 edges) at the main
+    rung (64, 256) and random token streams of the configured lengths."""
+    from graphvqa_tpu_torch.core.graph import QABatch
+    rng = np.random.default_rng(seed)
+    mc, bc = cfg.model, cfg.batch
+    samples = []
+    for _ in range(B):
+        n = int(np.clip(rng.normal(17, 6), 2, 60))
+        e = int(np.clip(n + rng.normal(90, 25), n, 250))
+        samples.append(GraphSample(
+            node_tokens=rng.integers(2, mc.scene.vocab_size,
+                                     (n, 12)).astype(np.int32),
+            edge_src=rng.integers(0, n, e).astype(np.int32),
+            edge_dst=rng.integers(0, n, e).astype(np.int32),
+            edge_tokens=rng.integers(2, mc.scene.vocab_size,
+                                     (e, 1)).astype(np.int32),
+            edge_sym=rng.random(e) > 0.7))
+    graphs = pack_graphs_dense(samples, 64, 256,
+                               max_steps=mc.max_execution_steps)
+
+    def tokens(rows, length):
+        t = rng.integers(4, mc.text.vocab_size, (rows, length))
+        t[:, 0] = mc.text.sos_idx
+        return torch.from_numpy(t.astype(np.int32))
+
+    return QABatch(graphs, tokens(B, bc.question_len),
+                   tokens(B * mc.max_execution_steps, bc.program_len),
+                   tokens(B, bc.full_answer_len),
+                   torch.from_numpy(rng.integers(0, mc.num_answers, B)
+                                    .astype(np.int32)))
+
+
+def _profiled_replays(step, state, batch, gen, n):
+    """``n`` replays of the train step under torch.profiler -> (the
+    device's busy seconds, its operations merged, host spans' mirrors left
+    out; the seconds from its first operation's start to its last one's
+    end; (start seconds, name) of each operation in start order)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    ops = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                 for ev in prof.events() if ev.device_type == DeviceType.CUDA
+                 and not getattr(ev, "is_user_annotation", False)
+                 and not ev.name.startswith("gvqa."))
+    busy, end = 0.0, None
+    for s, e, _ in ops:
+        if end is None or s > end:
+            busy, end = busy + (e - s), e
+        elif e > end:
+            busy, end = busy + (e - end), e
+    return (busy / 1e6, (end - ops[0][0]) / 1e6,
+            [(s / 1e6, e / 1e6, name) for s, e, name in ops])
+
+
+def test_segment_stamps_in_the_replayed_train_step():
+    """gat_config()'s train step at B=64, replayed: captured with tracing
+    off it launches no stamp kernel; captured with tracing on, each replay
+    runs a begin and six stamps. Each segment, as the card's clock summed
+    it, is the time between its stamp and the one before as the profiler
+    times the stamp kernels (to 1 % + 10 us over 5 replays); the segments
+    cover at least 85 % of the device's busy time over the same replays
+    (the rest: the batch copied into the graph's static inputs) and at most
+    the replays' elapsed time on the card (they also hold the gaps between
+    a replay's kernels). The stamp kernels take under 0.5 % of the busy
+    time."""
+    from graphvqa_tpu_torch.config import gat_config
+    from graphvqa_tpu_torch.core import profiling
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.train.loop import make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = _device()
+    cfg = gat_config()
+    model = build_model(cfg.model, device=dev, seed=0)
+    state = create_train_state(model)
+    step = make_train_step(model, cfg)
+    batch = _gqa_batch(cfg, 64, seed=5).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    order = ("encoders", "program_decoder", "engine", "classifier",
+             "loss_backward", "optimizer")
+    try:
+        for _ in range(2):          # the warm-up, the capture
+            step(state, batch, gen)
+        *_, ops = _profiled_replays(step, state, batch, gen, 3)
+        assert ops and not any("segment_stamp" in name for *_, name in ops)
+        profiling.enable(True)
+        for _ in range(2):          # dropped: warmed up and captured again
+            step(state, batch, gen)
+        assert step.graphs.warm_ups == 2 and step.graphs.captures == 2
+        profiling.reset_segments()
+        busy, elapsed, ops = _profiled_replays(step, state, batch, gen, 5)
+        steps, seconds = profiling.read_segments()
+    finally:
+        profiling.enable(False)
+    assert steps == 5
+    stamps = [t for t, _, name in ops if "segment_stamp" in name]
+    stamp_s = sum(e - t for t, e, name in ops if "segment_stamp" in name)
+    assert len(stamps) == 5 * (1 + len(order))
+    assert {k for k, s in seconds.items() if s > 0} == set(order)
+    for k, name in enumerate(order):
+        want = sum(stamps[7 * r + k + 1] - stamps[7 * r + k]
+                   for r in range(5))
+        assert abs(seconds[name] - want) <= 0.01 * want + 10e-6, name
+    total = sum(seconds.values())
+    print(f"segments {', '.join(f'{k} {1e3 * seconds[k] / 5:.3f}' for k in order)} "
+          f"ms per step; busy {1e3 * busy / 5:.3f}, elapsed "
+          f"{1e3 * elapsed / 5:.3f} ms per step; cover {100 * total / busy:.2f} %; "
+          f"stamps {1e6 * stamp_s / 5:.2f} us per step")
+    assert 0.85 * busy <= total <= elapsed
+    assert stamp_s <= 0.005 * busy

@@ -47,6 +47,9 @@ from tests.torch_port_helpers import (
     jax_variables, port_model, tiny_model_config)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+# the port's meta also carries each batch's collate time and the process
+# that collated it, which the JAX package's does not
+COLLATE_TIMING = ("collate_s", "collate_pid")
 JAX_ASSETS = REPO / "graphvqa_tpu" / "assets"
 PORT_ASSETS = REPO / "graphvqa_tpu_torch" / "assets"
 DEBUG = PORT_ASSETS / "debug"
@@ -233,6 +236,30 @@ def _assert_batches_equal(got, want):
     assert got.graphs.has_dense_layout == want.graphs.has_dense_layout
 
 
+def _untimed(meta: dict) -> dict:
+    return {k: v for k, v in meta.items() if k not in COLLATE_TIMING}
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_collate_time_in_the_meta(workers, synthetic):
+    """Each batch's meta carries its collate's host-clock seconds and the
+    process that ran it: this one with 0 workers, the pool's with 2."""
+    import os
+    _, pds = _datasets(*_split("synthetic", None, synthetic))
+    pds.prewarm()
+    bc = BatchConfig(num_graphs=32, nodes_per_graph=32, edges_per_graph=128)
+    try:
+        metas = [m for m, _ in pds.iter_batches(bc, num_workers=workers)]
+    finally:
+        pds.close()
+    assert metas and all(m["collate_s"] > 0 for m in metas)
+    pids = {m["collate_pid"] for m in metas}
+    if workers:
+        assert os.getpid() not in pids and 1 <= len(pids) <= workers
+    else:
+        assert pids == {os.getpid()}
+
+
 @pytest.fixture
 def numpy_packers(monkeypatch):
     """Both packages on their numpy packers (no native library)."""
@@ -264,7 +291,7 @@ def test_collate_matches_jax(layout, npg, epg, packer, debug_root, request):
     want = list(jds.iter_batches(JaxBatchConfig(**kw)))
     assert len(got) == len(want) == 2
     for (pm, pb), (jm, jb) in zip(got, want):
-        assert pm == jm and pm["layout"] == layout
+        assert _untimed(pm) == jm and pm["layout"] == layout
         _assert_batches_equal(pb, jb)
     deltas = [{k: s[k] - b[k] for k in s} for s, b in zip(
         (pdataset.collate_stats, jdataset.collate_stats), before)]
@@ -316,7 +343,8 @@ def test_worker_pool_matches_in_process(synthetic):
     assert counted["dense_bumped"] == sum(
         m["layout"] == "dense_bumped" for m, _ in want) > 0
     for (gm, gb), (wm, wb) in zip(got, want):
-        assert gm == wm
+        assert _untimed(gm) == _untimed(wm)
+        assert gm["collate_pid"] != wm["collate_pid"]
         assert isinstance(gb.questions, torch.Tensor)
         for a, b in zip(dataclasses.astuple(gb.graphs),
                         dataclasses.astuple(wb.graphs)):

@@ -211,9 +211,12 @@ def dp_run(tmp_path_factory):
     train = dict(kind="train", data=2, edge=1, cfg=cfg, state_dict=sd,
                  lr=LR, wd=WD)
     vcase = validate_case(tmp, 2, 1, tmp / "ranks")
+    # the K=2 case runs with the program's tracing on: it must step as the
+    # others do, and its segments are read
     started = torch_port_dist.start(2, tmp / "run", [
         dict(train, batches=[[pb[0]], [pb[1]]]),
-        dict(train, batches=[[pb[0], pb[2]], [pb[1], pb[3]]]), vcase])
+        dict(train, batches=[[pb[0], pb[2]], [pb[1], pb[3]]], trace=True),
+        vcase])
 
     model, jc = JaxPipelineModel(jcfg), jax_config(jcfg)
     mesh = jax_make_mesh(data=2, edge=1, devices=jax.devices()[:2])
@@ -274,6 +277,20 @@ def test_dp_two_steps_per_call_match_jax(dp_run):
     got = dp_run["ranks"][0][1]
     assert_step_matches(got, want, metrics)
     assert got["metrics"]["short_answer_total"] == 12
+
+
+def test_dp_step_reports_its_allreduce_segment(dp_run):
+    """With tracing on, each rank's two DP steps begin two steps of device
+    segments (host clock here), the all-reduce among them; with it off,
+    none."""
+    for rank in dp_run["ranks"]:
+        assert rank[0]["device_segments"] == (
+            0, {k: 0.0 for k in rank[0]["device_segments"][1]})
+        steps, seconds = rank[1]["device_segments"]
+        assert steps == 2
+        assert {k for k, s in seconds.items() if s > 0} == {
+            "encoders", "program_decoder", "engine", "classifier",
+            "loss_backward", "optimizer", "allreduce"}
 
 
 def test_validate_across_two_ranks_matches_one_process(dp_run, tmp_path):

@@ -145,6 +145,7 @@ def _cpu(t):
 
 
 def _train(case, dev):
+    from graphvqa_tpu_torch.core import profiling
     from graphvqa_tpu_torch.ops.gat_round import launch_counts
     from graphvqa_tpu_torch.parallel.edge_sharded import (
         make_dp_edge_train_step, prepare_dp_edge_batch)
@@ -173,12 +174,20 @@ def _train(case, dev):
     ctx = torch.Generator(device=dev).manual_seed(data_seed(1, mesh))
     before = launch_counts()
     calls, reduces = [], []
-    with counted_all_reduces(reduces):
-        for i in range(0, len(batches), K):
-            reduces.append([])
-            group = batches[i:i + K]
-            _, metrics = step(state, group if K > 1 else group[0], gen, ctx)
-            calls.append({k: float(v) for k, v in metrics.items()})
+    # with "trace", the program's tracing is on and its segments are read
+    profiling.enable(case.get("trace", False))
+    profiling.reset_segments()
+    try:
+        with counted_all_reduces(reduces):
+            for i in range(0, len(batches), K):
+                reduces.append([])
+                group = batches[i:i + K]
+                _, metrics = step(state, group if K > 1 else group[0], gen,
+                                  ctx)
+                calls.append({k: float(v) for k, v in metrics.items()})
+        segments = profiling.read_segments()
+    finally:
+        profiling.enable(False)
     graphs = step.graphs
     return dict(
         params={n: _cpu(p) for n, p in model.named_parameters()},
@@ -191,7 +200,7 @@ def _train(case, dev):
         all_reduces=[len(r) for r in reduces], reduce_calls=reduces,
         epg_loc=[b.graphs.edges_per_graph for b in batches],
         launches=tuple(n - b for n, b in zip(launch_counts(), before)),
-        **graph_record(graphs))
+        device_segments=segments, **graph_record(graphs))
 
 
 @contextlib.contextmanager
