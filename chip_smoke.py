@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
-  1. build    nvcc builds csrc/gat_round.cu and csrc/gat_round_backward.cu
-              for sm_90a (first use, one nvcc per source, in parallel)
+  1. build    nvcc builds csrc/gat_round.cu, csrc/gat_round_backward.cu and
+              csrc/layer_norm.cu for sm_90a (first use, one nvcc per
+              source, in parallel)
   2. kernel   the GAT-round kernel against its plain PyTorch version at the
               main path's shapes (B=512, npg=64, epg=256, H=4, C=300) on
               GQA-shaped random graphs: both softmax shifts, with and without
@@ -24,14 +25,16 @@ Phases, in order; any failure exits non-zero:
   5. serve    make_eval_step on 3 requests of B=512 at full width, each the
               replay of the step's CUDA graph (after the eager warm-up and
               the capture); the kernel must run exactly 5 times per request
-              (each launch counts itself on the card); ms per step and QA/s,
+              and the LayerNorm forward 357 times (each launch counts itself
+              on the card; step_launches); ms per step and QA/s,
               capture seconds, peak memory; then two more replays, each
               against the eager step on its request (phase 4's limits)
   6. profile  where one more request's time goes: stage times on the host
               clock, the device's busy share and its heaviest kernels
   7. train    make_train_step at full width on B=512: the eager warm-up,
               the capture and 5 counted replays; both kernels must run
-              exactly 5 times per step (counted on the card under replay);
+              exactly 5 times per step, the LayerNorm kernels 27 and 17
+              times (counted on the card under replay);
               ms per step, QA/s, the loss of each step, then one profiled
               step: device busy share and heaviest kernels; then two
               replays, each against the eager step from the same state and
@@ -61,7 +64,8 @@ Phases, in order; any failure exits non-zero:
               --evaluate with the result and attention dumps, then the
               port's scorer over them; steps/s, epoch wall, data-wait, eval
               QA/s, the scorer's accuracy, and the kernel launches the CLI
-              counted (5 forward per eval step, 5 + 5 per train step); then
+              counted (GAT 5 forward per eval step, 5 + 5 per train step;
+              LayerNorm 357 per eval step, 27 + 17 per train step); then
               one batch forced into the flat layout through the eval step,
               card against CPU, and a train step on the card
  12. families the other model families at full width: gcn_config(),
@@ -76,7 +80,10 @@ Phases, in order; any failure exits non-zero:
               each step's loss, peak memory, one profiled step's busy share
               and heaviest five kernels); the GAT kernels must run 5 (eval) and
               5 + 5 (train) times per step on onlysg and exec, never on gcn,
-              gine and lcgn. LCGN's context features come from a seeded
+              gine and lcgn, and the LayerNorm kernels as step_launches
+              counts them by the code (27 + 27 a train step on the
+              baselines, whose program loss reaches the program decoder;
+              onlysg runs no question encoder). LCGN's context features come from a seeded
               generator on the card, and from one fixed draw on both sides
               where card and CPU are compared. Then one CLI epoch of
               --model lcgn --use-execution-engine (2 steps of B=512 on
@@ -96,7 +103,8 @@ Phases, in order; any failure exits non-zero:
               deterministic algorithms, then bf16 steps eager and captured
               side by side (ms per step per rank, host launch calls, one
               all-reduce per step, capture seconds, peak memory, GAT
-              launches 5 + 5 per rank per step counted on the card); then
+              launches 5 + 5 and LayerNorm 27 + 17 per rank per step
+              counted on the card); then
               the same step on a one-rank NCCL group given as the mesh's
               world group, its all-reduce captured inside the one graph,
               bitwise against eager. (c) the edge-sharded step, B=512 at
@@ -138,13 +146,26 @@ Phases, in order; any failure exits non-zero:
               rewound state under deterministic algorithms, bitwise; then
               the graphs the port runs: ms per step captured and eager for
               bf16 eval and train, each one's profiled device busy time,
-              kernels and host launch calls; GAT launches per step counted
-              on the card under replay (5 eval, 5 + 5 train); the bumped
+              kernels and host launch calls; GAT and LayerNorm launches per
+              step counted on the card under replay (5 and 357 eval, 5 + 5
+              and 27 + 17 train); the bumped
               rung captures a second train and eval graph, after which the
               main rung replays without a capture, each replay held against
               the eager step between the bumped rung's replays (as phases 5
               and 7 hold them); capture seconds per rung and peak memory
               with the graphs cached
+ 15. layer-norm  the Transformer stacks' LayerNorm kernels against the plain
+              composite at the rows they take at B=200 (6,400, 1,000,
+              16,000 and 200 x 512), x in bf16 and f32, y bf16: the
+              forward's statistics against float64 and its output against
+              the composite within tests/torch_port_fixtures.py's
+              LAYER_NORM_ULPS, bit for bit the composite's formula at its
+              own statistics; the backward against autograd through the
+              composite, and twice bit for bit; then each kernel's device
+              time (cold L2) beside its least-bytes bound, the composite's
+              time and F.layer_norm's. Every phase above that runs a model
+              holds its LayerNorm launches, counted on the card, to
+              step_launches
 
 Each phase's seconds print as "[seconds] phase N".
 
@@ -667,6 +688,63 @@ def gat_rounds(cfg):
     return e.num_rounds if e.kind in ("gat", "none") else 0
 
 
+def layer_norm_launches(cfg):
+    """LayerNorm-kernel launches of a config, by the code: (forward a train
+    step, backward a train step, forward an eval request). The question
+    encoder's layers take 2 norms each and the decoders' 3, each stack one
+    more at its end (7 and 10 at 3 layers); onlysg runs no question
+    encoder. A train step runs the encoder, the coarse decoder and the
+    teacher-forced program decoder forward; autograd runs back through the
+    program decoder only where the program loss reaches it. An eval
+    request runs the encoder and the coarse decoder, then one decoder stack
+    per greedy step: program_decode_len - 1 steps and, with the full
+    answer, full_answer_decode_len - 1 more."""
+    m = cfg.model
+    n = m.transformer.num_layers
+    enc = 0 if m.engine.kind == "none" else 2 * n + 1
+    dec = 3 * n + 1
+    steps = m.program_decode_len - 1 + (
+        m.full_answer_decode_len - 1 if m.use_full_answer else 0)
+    return (enc + 2 * dec,
+            enc + dec + (dec if cfg.train.use_program_loss else 0),
+            enc + dec + steps * dec)
+
+
+def step_launches(cfg, train):
+    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward)
+    launches of one train step (``train``) or eval request of a config."""
+    rounds = gat_rounds(cfg)
+    fwd, bwd, ev = layer_norm_launches(cfg)
+    return (rounds, rounds, fwd, bwd) if train else (rounds, 0, ev, 0)
+
+
+def launch_counts():
+    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward)
+    launches since the last reset_launch_counts(), as the kernels counted
+    them on the card (CUDA graph replays too)."""
+    from graphvqa_tpu_torch.ops import gat_round, row_layer_norm
+    return gat_round.launch_counts() + row_layer_norm.launch_counts()
+
+
+def reset_launch_counts():
+    from graphvqa_tpu_torch.ops import cuda_lib
+    cuda_lib.reset_launch_counts()
+
+
+def launch_text(launches):
+    return ("gat_round {}, gat_round_backward {}, layer_norm {}, "
+            "layer_norm_backward {}".format(*launches))
+
+
+def cli_launches(text, what):
+    """The four counts of the CLI's last 'kernel launches (``what``)'
+    line."""
+    return tuple(int(v) for v in _last_match(
+        rf"kernel launches \({re.escape(what)}\): gat_round (\d+), "
+        r"gat_round_backward (\d+), layer_norm (\d+), "
+        r"layer_norm_backward (\d+)", text, f"{what} launches"))
+
+
 def phase_serve(cfg, dev, model, tag="serve", ctx=None, relative=False):
     """make_eval_step, a CUDA graph replayed per request, on 3 counted
     B=512 requests after the eager warm-up and the capture (counts set to 0
@@ -674,8 +752,6 @@ def phase_serve(cfg, dev, model, tag="serve", ctx=None, relative=False):
     against the eager step (hold_eval_replays; ``relative`` as phase 12
     scales the limit); ``ctx`` is LCGN's generator."""
     import torch
-    from graphvqa_tpu_torch.ops.gat_round import (
-        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.train.loop import make_eval_step
     step = make_eval_step(model, cfg)
     requests = [qa_batch(cfg, B, seed=100 + i).to(dev) for i in range(4)]
@@ -694,10 +770,11 @@ def phase_serve(cfg, dev, model, tag="serve", ctx=None, relative=False):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         outs.append(out)
-    launches = launch_counts()[0]
-    if launches != gat_rounds(cfg) * len(times):
-        fail(f"{tag}: gat_round launched {launches} times in {len(times)} "
-             f"requests, expected {gat_rounds(cfg)} per request")
+    launches = launch_counts()
+    want = step_launches(cfg, train=False)
+    if launches != tuple(v * len(times) for v in want):
+        fail(f"{tag}: {launch_text(launches)} launches in {len(times)} "
+             f"requests, expected {launch_text(want)} per request")
     V = cfg.model.text.vocab_size
     for vectors, tokens, attention in outs:
         if not (torch.isfinite(vectors["sa_score"]).all()
@@ -719,8 +796,9 @@ def phase_serve(cfg, dev, model, tag="serve", ctx=None, relative=False):
     ms = [t * 1e3 for t in times]
     log(f"[{tag}] {len(times)} replayed requests of B={B}: ms/step "
         f"{', '.join(f'{m:.2f}' for m in ms)} (mean {statistics.mean(ms):.2f}),"
-        f" QA/s {B / statistics.mean(times):.1f}, gat_round launches "
-        f"{launches}, capture {sum(step.graphs.capture_seconds.values()):.2f}s"
+        f" QA/s {B / statistics.mean(times):.1f}, launches "
+        f"{launch_text(launches)}, capture "
+        f"{sum(step.graphs.capture_seconds.values()):.2f}s"
         f", peak memory {peak_gib(dev)}")
     held = hold_eval_replays(cfg, model, step, requests[1:3], ctx, tag,
                              relative)
@@ -818,8 +896,6 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
     two replays on other batches held against the eager step
     (hold_train_replays). ``ctx`` is LCGN's generator."""
     import torch
-    from graphvqa_tpu_torch.ops.gat_round import (
-        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.train.loop import make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
     tc = cfg.train
@@ -847,11 +923,11 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(m["total"]))
-    fwd, bwd = launch_counts()
-    rounds = gat_rounds(cfg)
-    if (fwd, bwd) != (rounds * len(times), rounds * len(times)):
-        fail(f"{tag}: gat_round {fwd} and gat_round_backward {bwd} launches "
-             f"in {len(times)} steps, expected {rounds} each per step")
+    launches = launch_counts()
+    want = step_launches(cfg, train=True)
+    if launches != tuple(v * len(times) for v in want):
+        fail(f"{tag}: {launch_text(launches)} launches in {len(times)} "
+             f"steps, expected {launch_text(want)} per step")
     if not all(map(math.isfinite, losses)):
         fail(f"{tag}: non-finite training loss: {losses}")
     parts = ", ".join(f"{k} {float(v):.5f}" for k, v in m.items()
@@ -865,15 +941,14 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
         f"{sum(step.graphs.capture_seconds.values()) * 1e3:.0f}), QA/s "
         f"{B / statistics.mean(times):.1f}"
         f"; loss per step {', '.join(f'{v:.5f}' for v in losses)} (last: "
-        f"{parts}); launches per step gat_round {fwd // len(times)}, "
-        f"gat_round_backward {bwd // len(times)}; peak memory "
+        f"{parts}); launches per step {launch_text(want)}; peak memory "
         f"{peak_gib(dev)}")
     profiled_step(lambda: step(state, batch, gen, ctx), tag, top)
     held = hold_train_replays(
         cfg, state, step, [qa_batch(cfg, B, seed=201 + i).to(dev)
                            for i in range(2)], gen, ctx, tag)
     log(f"[{tag}] replays against the eager step: {held}")
-    return fwd, bwd
+    return launches
 
 
 def relu_inputs(model):
@@ -1252,14 +1327,15 @@ def phase_cli(cfg, dev, data):
     layouts = json.loads(_last_match(
         r"collate layout stats \(this epoch\): (\{.*\})", train_out,
         "layout stats").replace("'", '"'))
-    f_tr, b_tr = (int(v) for v in _last_match(
-        r"kernel launches \(train epoch 0\): gat_round (\d+), "
-        r"gat_round_backward (\d+)", train_out, "train launches"))
+    tr = cli_launches(train_out, "train epoch 0")
     kernel_steps = steps - layouts["flat_fallback"]
-    if (f_tr, b_tr) != (rounds * kernel_steps, rounds * kernel_steps):
-        fail(f"CLI epoch: gat_round {f_tr} / gat_round_backward {b_tr} "
-             f"launches for {kernel_steps} dense steps, expected {rounds} "
-             f"each per step")
+    ln_fwd, ln_bwd, ln_eval = layer_norm_launches(cfg)
+    if tr != (rounds * kernel_steps, rounds * kernel_steps, ln_fwd * steps,
+              ln_bwd * steps):
+        fail(f"CLI epoch: {launch_text(tr)} launches for {steps} steps, "
+             f"{kernel_steps} dense, expected gat_round and "
+             f"gat_round_backward {rounds} each per dense step, layer_norm "
+             f"{ln_fwd} and layer_norm_backward {ln_bwd} per step")
     shapes, warm, caps, cap_s, replays = _last_match(
         r"step graphs \(train epoch 0\): (\d+) shapes, (\d+) warm-ups, "
         r"(\d+) captures \(([\d.]+)s\), (\d+) replays", train_out,
@@ -1271,11 +1347,10 @@ def phase_cli(cfg, dev, data):
                    f"({cap_s}s), {replays} replays")
     val_q = int(_last_match(r"eval sustained: [\d.]+ qa/s \((\d+) questions",
                             train_out, "validation summary"))
-    f_val = int(_last_match(r"kernel launches \(validate epoch 0\): "
-                            r"gat_round (\d+)", train_out,
-                            "validate launches"))
-    if f_val != rounds * -(-val_q // B):
-        fail(f"CLI validation: {f_val} gat_round launches for {val_q} "
+    val = cli_launches(train_out, "validate epoch 0")
+    batches = -(-val_q // B)
+    if val != (rounds * batches, 0, ln_eval * batches, 0):
+        fail(f"CLI validation: {launch_text(val)} launches for {val_q} "
              f"questions")
     if not (out / "ckpt" / "ckpt_0.pt").exists():
         fail("the CLI wrote no checkpoint")
@@ -1289,10 +1364,10 @@ def phase_cli(cfg, dev, data):
     if not ev:
         fail("the CLI printed no evaluation summary")
     eval_qa_s, eval_q = float(ev[-1][0]), int(ev[-1][1])
-    f_ev = int(_last_match(r"kernel launches \(evaluate val_balanced\): "
-                           r"gat_round (\d+)", eval_out, "evaluate launches"))
-    if f_ev != rounds * -(-eval_q // B):
-        fail(f"CLI evaluate: {f_ev} gat_round launches for {eval_q} "
+    ev = cli_launches(eval_out, "evaluate val_balanced")
+    batches = -(-eval_q // B)
+    if ev != (rounds * batches, 0, ln_eval * batches, 0):
+        fail(f"CLI evaluate: {launch_text(ev)} launches for {eval_q} "
              f"questions")
     dump = json.loads((out / "dump_results.json").read_text())
     atts = json.loads((out / "dump_attentions.json").read_text())
@@ -1314,17 +1389,18 @@ def phase_cli(cfg, dev, data):
         f"(the first step, with the pool's fork and the card's warm-up, "
         f"{ends[0]:.2f}s; then {steady_ms:.1f} ms per step = "
         f"{1e3 / steady_ms:.2f} steps/s, {B * 1e3 / steady_ms:.1f} QA/s), "
-        f"data-wait {wait:.1f}%, layouts {layouts}, launches gat_round "
-        f"{f_tr} gat_round_backward {b_tr}, step graphs {graphs_line}; "
+        f"data-wait {wait:.1f}%, layouts {layouts}, launches "
+        f"{launch_text(tr)}, step graphs {graphs_line}; "
         f"validation {val_q} questions, "
-        f"gat_round {f_val}; process {train_s:.1f}s")
+        f"{launch_text(val)}; process {train_s:.1f}s")
     log(f"[cli] --resume --evaluate: {eval_q} questions at {eval_qa_s:.1f} "
-        f"QA/s, gat_round {f_ev} launches, dumps {len(dump)} results / "
+        f"QA/s, launches {launch_text(ev)}, dumps {len(dump)} results / "
         f"{len(atts)} attention rows; process {eval_s:.1f}s; scorer "
         f"{accuracy}, {grounding}")
     phase_flat(cfg, dev, data)
     log(f"[cli] phase {time.perf_counter() - t_phase:.1f}s")
-    return dict(forward=f_tr + f_val + f_ev, backward=b_tr)
+    return dict(forward=tr[0] + val[0] + ev[0], backward=tr[1],
+                layer_norm=tr[2] + val[2] + ev[2], layer_norm_backward=tr[3])
 
 
 def phase_flat(cfg, dev, data):
@@ -1335,7 +1411,6 @@ def phase_flat(cfg, dev, data):
     import torch
     from graphvqa_tpu_torch.data import GQADataset, build_scene_graph_vocab
     from graphvqa_tpu_torch.data.vocab import Vocab
-    from graphvqa_tpu_torch.ops.gat_round import launch_counts
     from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
     root = data["data"]
@@ -1363,7 +1438,7 @@ def phase_flat(cfg, dev, data):
         outs[str(device)] = model.sample(batch.to(device)).short_answer_logits \
             .float().cpu()
         if device != "cpu":
-            if launch_counts() != f0:
+            if launch_counts()[:2] != f0[:2]:
                 fail("the flat batch launched the GAT kernel")
             gen = torch.Generator(device=device).manual_seed(0)
             _, m = make_train_step(model, fcfg)(create_train_state(model),
@@ -1386,7 +1461,8 @@ def phase_flat(cfg, dev, data):
         f"{batch.graphs.nodes_pad} / {batch.graphs.edges_pad} slots): "
         f"max |logit card - cpu| {err:.4f} (limit {PARITY_ATOL}), argmax "
         f"equal on {int(same.sum())}/8; train step on the card loss "
-        f"{loss:.5f}; no kernel launched (the flat round is plain ops)")
+        f"{loss:.5f}; no GAT kernel launched (the flat round is plain "
+        f"ops)")
 
 
 FAMILIES = ("gcn", "gine", "lcgn", "onlysg", "exec")
@@ -1430,11 +1506,15 @@ def phase_families(dev, data):
         ctx = torch.Generator(device=dev).manual_seed(2)
         serve, _, _ = phase_serve(cfg, dev, model, tag=tag, ctx=ctx,
                                   relative=True)
-        fwd, bwd = phase_train(cfg, dev, model, steps=3, tag=tag, ctx=ctx,
-                               top=5)
-        launches[name] = dict(forward=serve + fwd, backward=bwd)
-        log(f"[{tag}] gat_round launches: serve {serve} (3 requests), train "
-            f"{fwd} + backward {bwd} (3 steps); {time.perf_counter() - t0:.1f}s")
+        train = phase_train(cfg, dev, model, steps=3, tag=tag, ctx=ctx,
+                            top=5)
+        launches[name] = dict(forward=serve[0] + train[0],
+                              backward=train[1],
+                              layer_norm=serve[2] + train[2],
+                              layer_norm_backward=train[3])
+        log(f"[{tag}] launches: serve {launch_text(serve)} (3 requests), "
+            f"train {launch_text(train)} (3 steps); "
+            f"{time.perf_counter() - t0:.1f}s")
         del model
         torch.cuda.empty_cache()
     phase_cli_lcgn(data)
@@ -1457,11 +1537,12 @@ def phase_cli_lcgn(data):
     losses = [float(v) for v in re.findall(r"Loss (\S+) \(", stdout)]
     if not losses or not all(map(math.isfinite, losses)):
         fail(f"lcgn CLI: training losses {losses}")
-    f_tr, b_tr = (int(v) for v in _last_match(
-        r"kernel launches \(train epoch 0\): gat_round (\d+), "
-        r"gat_round_backward (\d+)", stdout, "train launches"))
-    if (f_tr, b_tr) != (0, 0):
-        fail(f"lcgn CLI: the GAT kernels launched {f_tr} / {b_tr} times")
+    tr = cli_launches(stdout, "train epoch 0")
+    ln_fwd, ln_bwd, _ = layer_norm_launches(family_config("lcgn"))
+    if tr != (0, 0, ln_fwd * 2, ln_bwd * 2):
+        fail(f"lcgn CLI: {launch_text(tr)} launches in 2 steps, expected "
+             f"no GAT kernel, layer_norm {ln_fwd} and layer_norm_backward "
+             f"{ln_bwd} per step")
     res = _last_match(r"val_balanced (\{.*'bitmap_recall'.*\})", stdout,
                       "validation result with the bitmap meters")
     qa_s = _last_match(r"epoch sustained: ([\d.]+) qa/s", stdout,
@@ -1470,7 +1551,8 @@ def phase_cli_lcgn(data):
         fail("lcgn CLI: no checkpoint")
     log(f"[families cli] lcgn + execution engine, B={B}: losses "
         f"{', '.join(f'{v:.5f}' for v in losses)}, epoch {qa_s} QA/s, "
-        f"validation {res}, GAT launches 0 / 0; process {secs:.1f}s, phase "
+        f"validation {res}, launches {launch_text(tr)}; process "
+        f"{secs:.1f}s, phase "
         f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -1847,15 +1929,12 @@ def phase_graphs(dev, data):
     step between the bumped rung's."""
     import torch
     from graphvqa_tpu_torch.config import gat_config
-    from graphvqa_tpu_torch.ops.gat_round import (
-        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
     from graphvqa_tpu_torch.train.train_state import create_train_state
     tag = "graphs"
     t_phase = time.perf_counter()
     out = dict(train_parity=graphs_train_parity(dev, tag))
     cfg = gat_config()
-    rounds = gat_rounds(cfg)
     main = (NPG, EPG)
     above = [r for r in data["rung_batches"] if r[0] * r[1] > NPG * EPG]
     if not above:
@@ -1883,10 +1962,11 @@ def phase_graphs(dev, data):
         cap_eval(req)
     reset_launch_counts()
     eval_ms = {"captured": timed_steps(lambda: cap_eval(requests[1]), 3)}
-    eval_launches = launch_counts()[0]
-    if eval_launches != rounds * 4:
-        fail(f"{tag}: {eval_launches} gat_round launches in 4 replayed "
-             f"requests, expected {rounds} per request")
+    eval_launches = launch_counts()
+    per_request = step_launches(cfg, train=False)
+    if eval_launches != tuple(v * 4 for v in per_request):
+        fail(f"{tag}: {launch_text(eval_launches)} launches in 4 replayed "
+             f"requests, expected {launch_text(per_request)} per request")
     eval_ms["eager"] = timed_steps(lambda: eager_eval(requests[1]), 3)
     eval_prof = {mode: profiled_step(lambda: step(requests[1]),
                                      f"{tag} eval {mode}", 5)
@@ -1905,10 +1985,10 @@ def phase_graphs(dev, data):
     train_ms = {"captured": timed_steps(
         lambda: cap_train(state, batch, gen), 5)}
     train_launches = launch_counts()
-    if train_launches != (rounds * 6, rounds * 6):
-        fail(f"{tag}: gat_round {train_launches[0]} and gat_round_backward "
-             f"{train_launches[1]} launches in 6 replayed train steps, "
-             f"expected {rounds} each per step")
+    per_step = step_launches(cfg, train=True)
+    if train_launches != tuple(v * 6 for v in per_step):
+        fail(f"{tag}: {launch_text(train_launches)} launches in 6 replayed "
+             f"train steps, expected {launch_text(per_step)} per step")
     train_ms["eager"] = timed_steps(lambda: eager_train(state, batch, gen), 5)
     train_prof = {mode: profiled_step(lambda: step(state, batch, gen),
                                       f"{tag} train {mode}", 5)
@@ -1966,9 +2046,9 @@ def phase_graphs(dev, data):
         f"{held[1]}; train {held[2]}; eval {held[3]}")
     log(f"[{tag}] capture seconds per rung: {capture_s}; bumped rung "
         f"{bumped} captured a second graph each, the main rung "
-        f"{main} then replayed (captures {after}); GAT launches counted on "
-        f"the card under replay: eval {eval_launches // 4}, train "
-        f"{train_launches[0] // 6} + {train_launches[1] // 6} per step; peak "
+        f"{main} then replayed (captures {after}); launches counted on "
+        f"the card under replay: eval {launch_text(per_request)} per "
+        f"request, train {launch_text(per_step)} per step; peak "
         f"memory with both main-rung graphs cached {peak}, with the bumped "
         f"rung's too {peak_gib(dev)}; phase "
         f"{time.perf_counter() - t_phase:.1f}s")
@@ -2409,8 +2489,6 @@ def time_dp_steps(cfg, mesh, state, batch, gen, mode, untimed, steps,
     -> dict(times, losses, launches, reduces, reduce_calls[, prof,
     peak][, calls, capture_s, segments])"""
     import torch
-    from graphvqa_tpu_torch.ops.gat_round import (
-        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.parallel.data_parallel import make_dp_train_step
     step = make_dp_train_step(state.model, cfg, mesh,
                               capture=mode == "captured")
@@ -2454,8 +2532,6 @@ def time_edge_eval(cfg, mesh, model, batch, mode, n, profile=None):
     with ``profile`` then one profiled request and the peak memory since
     the last reset. -> time_dp_steps' dict, without losses"""
     import torch
-    from graphvqa_tpu_torch.ops.gat_round import (
-        launch_counts, reset_launch_counts)
     from graphvqa_tpu_torch.parallel.edge_sharded import make_edge_eval_step
     step = make_edge_eval_step(model, cfg, mesh, capture=mode == "captured")
     for _ in range(2 if mode == "captured" else 1):
@@ -2607,16 +2683,15 @@ def _run_text(run, unit="step"):
 
 
 def _hold_run(tag, mode, run, launches, collectives):
-    """Fails on GAT launches other than ``launches`` (forward, backward)
+    """Fails on kernel launches other than ``launches`` (step_launches)
     per call, on a non-finite loss, or on a call whose dist.all_reduce
     calls differ from ``collectives`` (a list of (op, shape, dtype)) in
     number or order: the eager call's own, or none for a replay whose
     graph holds its collectives (NCCL)."""
     n = len(run["times"])
-    if run["launches"] != (launches[0] * n, launches[1] * n):
-        fail(f"{tag} {mode}: gat_round / gat_round_backward launches "
-             f"{run['launches']} in {n} calls, expected {launches} each "
-             f"per call")
+    if run["launches"] != tuple(v * n for v in launches):
+        fail(f"{tag} {mode}: {launch_text(run['launches'])} launches in {n} "
+             f"calls, expected {launch_text(launches)} per call")
     if not all(map(math.isfinite, run.get("losses", []))):
         fail(f"{tag} {mode}: non-finite loss {run['losses']}")
     if run["reduce_calls"] != [collectives] * n:
@@ -2625,16 +2700,19 @@ def _hold_run(tag, mode, run, launches, collectives):
              f"in number or order (op, shape, dtype)")
 
 
-def _timing_line(tag, runs, rounds):
+def _timing_line(tag, runs, cfg):
     """Per-rank ms per step and launches of a 'time' case, its captured run
     beside the eager one where it has one (host launch calls, graphs per
     step, capture seconds, peak memory), and its edge eval requests where
     it has them; fails (_hold_run) on a non-finite loss, on launches other
-    than ``rounds`` + ``rounds`` per rank per step in either run (``rounds``
-    + 0 per request), or on a captured run whose collectives differ from
-    the eager step's own in number or order. -> the GAT launches of the
-    run the path takes: the captured one where there is one."""
-    total = [0, 0]
+    than ``cfg``'s per rank per step in either run (step_launches; per
+    request on the requests), or on a captured run whose collectives
+    differ from the eager step's own in number or order. -> the kernel
+    launches of the run the path takes: the captured one where there is
+    one."""
+    per_step = step_launches(cfg, train=True)
+    per_request = step_launches(cfg, train=False)
+    total = [0, 0, 0, 0]
     for r, rec in enumerate(runs):
         eager = rec["reduce_calls"][0]
         modes = ([("captured", rec["captured"])] if "captured" in rec
@@ -2642,24 +2720,24 @@ def _timing_line(tag, runs, rounds):
         texts = []
         for mode, run in modes:
             # through gloo every replay makes the eager step's collectives
-            _hold_run(f"{tag} rank {r}", mode, run, (rounds, rounds), eager)
+            _hold_run(f"{tag} rank {r}", mode, run, per_step, eager)
             texts.append(f"{mode} " + _run_text(run))
         if "eager_eval" in rec:
             eager = rec["eager_eval"]["reduce_calls"][0]
             for mode in ("captured", "eager"):
                 run = rec[f"{mode}_eval"]
-                _hold_run(f"{tag} rank {r} eval", mode, run, (rounds, 0),
+                _hold_run(f"{tag} rank {r} eval", mode, run, per_request,
                           eager)
                 texts.append(f"eval {mode} " + _run_text(run, "request"))
-        main = modes[0][1]["launches"]
-        total[0] += main[0]
-        total[1] += main[1]
+        for k, v in enumerate(modes[0][1]["launches"]):
+            total[k] += v
         log(f"[{tag}] rank {r}: " + "; ".join(texts) + f"; epg_loc "
             f"{rec['epg_loc']}, the gradient all-reduce alone "
             f"{rec['reduce_ms']:.1f} ms, peak {rec['peak_gib']:.2f} GiB "
             f"allocated in the rank")
-    log(f"[{tag}] launches per rank per step {rounds} + {rounds}"
-        + (f", per request {rounds}" if "eager_eval" in runs[0] else "")
+    log(f"[{tag}] launches per rank per step {launch_text(per_step)}"
+        + (f", per request {launch_text(per_request)}"
+           if "eager_eval" in runs[0] else "")
         + ", counted on the card")
     return total
 
@@ -2734,11 +2812,11 @@ def phase_dp(dev):
         log(f"[multi dp] f32 B={Bd} rank {d}, 3 more steps captured against "
             f"eager under deterministic algorithms: {_capture_held(got)}")
     launches = _timing_line(f"multi dp bf16 B={Bd} per rank",
-                            ranks["dp_time"], gat_rounds(cfg))
+                            ranks["dp_time"], cfg)
     nccl = run_ranks(1, [dict(kind="nccl", name="dp_nccl", cfg32=cfg32,
                               cfg=cfg, batch=Bd, seed=320, steps=3)],
                      backend="nccl")["dp_nccl"][0]
-    _nccl_line("multi nccl", nccl, gat_rounds(cfg), {"check": 1},
+    _nccl_line("multi nccl", nccl, cfg, {"check": 1},
                f"the world group given to the mesh: f32 B={Bd}")
     log(f"[multi dp] phase {time.perf_counter() - t0:.1f}s")
     return launches
@@ -2757,7 +2835,7 @@ def _capture_held(rec):
             + (f"; peak {c['peak']}" if "peak" in c else ""))
 
 
-def _nccl_line(tag, rec, rounds, collectives, what):
+def _nccl_line(tag, rec, cfg, collectives, what):
     """Checks and logs a one-rank NCCL case (_rank_nccl): the backend, the
     f32 holds' dist.all_reduce calls (``collectives``: per eager call and
     per capture of each hold, {'check': n[, 'eval_check': m]}; none in a
@@ -2775,8 +2853,9 @@ def _nccl_line(tag, rec, rounds, collectives, what):
                  f"expected {n} per eager call and none on the replay (the "
                  f"collectives inside the graph)")
     parts = []
-    units = [("", "step", (rounds, rounds))] + (
-        [("_eval", "request", (rounds, 0))] if "eager_eval" in rec else [])
+    units = [("", "step", step_launches(cfg, train=True))] + (
+        [("_eval", "request", step_launches(cfg, train=False))]
+        if "eager_eval" in rec else [])
     for suffix, unit, launches in units:
         eager = rec[f"eager{suffix}"]["reduce_calls"][0]
         for mode in ("captured", "eager"):
@@ -2790,8 +2869,9 @@ def _nccl_line(tag, rec, rounds, collectives, what):
     log(f"[{tag}] one rank, {what}, 3 calls captured against eager: {held} "
         f"(the warm-up and the capture issued the collectives, the capture "
         f"into the graph, the replay none from Python); bf16: "
-        f"{'; '.join(parts)}; GAT launches {rounds} + {rounds} per step "
-        f"counted on the card; peak {rec['peak']}")
+        f"{'; '.join(parts)}; launches per step "
+        f"{launch_text(step_launches(cfg, train=True))} counted on the "
+        f"card; peak {rec['peak']}")
 
 
 def phase_edge(dev):
@@ -2862,18 +2942,18 @@ def phase_edge(dev):
             f"{_capture_held(run)}; an edge eval request, 3 captured "
             f"against eager: {_capture_held(run['eval'])}")
     launches = _timing_line(f"multi edge bf16 B={B} data 1 x edge 2",
-                            ranks["edge_time"], rounds)
+                            ranks["edge_time"], cfg)
     grid = run_ranks(4, [dict(kind="time", name="edge_2x2", data=2, edge=2,
                               cfg=cfg, batch=B // 2, seed=420, warmup=False,
                               steps=1, captured=True)])
     more = _timing_line(f"multi edge bf16 data 2 x edge 2, B={B // 2} per "
                         f"data rank, the first step eager, then one "
                         f"captured after its warm-up", grid["edge_2x2"],
-                        rounds)
+                        cfg)
     nccl = run_ranks(1, [dict(kind="nccl", name="edge_nccl", edge=True,
                               cfg32=cfg32, cfg=cfg, batch=B // 2, seed=430,
                               steps=3)], backend="nccl")["edge_nccl"][0]
-    _nccl_line("multi edge nccl", nccl, rounds,
+    _nccl_line("multi edge nccl", nccl, cfg,
                {"check": collectives, "eval_check": forward},
                f"the world and edge group given to the mesh, the batches "
                f"sharded at K=1: f32 B={B // 2}")
@@ -2922,9 +3002,11 @@ def phase_cli_dist(data):
     steps (the CLI's 'step graphs' lines; an edge share's padding follows
     its batch, so one epoch of 2 steps may hold two shapes and no
     capture)."""
+    from graphvqa_tpu_torch.config import gat_config
     t0 = time.perf_counter()
     root = data["data"]
-    launches = [0, 0]
+    launches = [0, 0, 0, 0]
+    ln_fwd, ln_bwd, _ = layer_norm_launches(gat_config())
     for tag, nproc, bsz, epochs, extra in (
             ("nccl", 1, B, 1, []),
             ("gloo-dp2", 2, B // 2, 2, ["--data-parallel", "2",
@@ -2940,9 +3022,12 @@ def phase_cli_dist(data):
         train_out, train_s = _run_torchrun(nproc, common + [
             "--epochs", str(epochs), "--validate-every", "1",
             "--fast-validate", "1"], f"cli_{tag}_train")
-        f_tr, b_tr = (int(v) for v in _last_match(
-            r"kernel launches \(train epoch 0\): gat_round (\d+), "
-            r"gat_round_backward (\d+)", train_out, "train launches"))
+        tr = cli_launches(train_out, "train epoch 0")
+        steps = 1024 // (bsz * data_ranks)
+        if tr[2:] != (ln_fwd * steps, ln_bwd * steps):
+            fail(f"CLI {tag}: {launch_text(tr)} launches in epoch 0 of "
+                 f"{steps} steps, expected layer_norm {ln_fwd} and "
+                 f"layer_norm_backward {ln_bwd} per step")
         losses = [float(v) for v in re.findall(r"Loss (\S+) \(", train_out)]
         if not losses or not all(map(math.isfinite, losses)):
             fail(f"CLI {tag}: training losses {losses}")
@@ -2963,8 +3048,8 @@ def phase_cli_dist(data):
             fail(f"CLI {tag}: the gathered dumps hold {len(dump)} results "
                  f"/ {len(atts)} attention rows for {len(want)} questions")
         res = _last_match(r"val_balanced (\{.*\})", eval_out, "evaluate result")
-        launches[0] += f_tr
-        launches[1] += b_tr
+        for k, v in enumerate(tr):
+            launches[k] += v
         graphs = ""
         if nproc > 1:
             train_calls, eval_calls = (
@@ -2978,8 +3063,8 @@ def phase_cli_dist(data):
                       f"evaluate {evaluate}")
         log(f"[multi cli {tag}] torchrun --nproc_per_node {nproc}, B={bsz} "
             f"per rank, {epochs} epoch(s): train losses "
-            f"{', '.join(f'{v:.5f}' for v in losses)}, rank 0's launches in "
-            f"epoch 0 gat_round {f_tr} gat_round_backward {b_tr}; evaluate: "
+            f"{', '.join(f'{v:.5f}' for v in losses)}, rank 0's launches "
+            f"in epoch 0 {launch_text(tr)}; evaluate: "
             f"{len(dump)} results and {len(atts)} attention rows gathered, "
             f"each val question once, {res}{graphs}; processes "
             f"{train_s:.1f}s + {eval_s:.1f}s")
@@ -3075,6 +3160,259 @@ def phase_multi(dev, data):
                 cli=cli)
 
 
+# --- phase 15: the Transformer stacks' LayerNorm kernels ---------------------
+
+# the rows of the stacks' LayerNorm calls at B=200, the benchmark's batch:
+# the question encoder's 200 x 32, the coarse decoder's 200 x 5, the
+# teacher-forced program decoder's 200 x 5 x 16, a greedy step's 200
+LN_ROWS, LN_D, LN_EPS = (6400, 1000, 16000, 200), 512, 1e-5
+# the backward against autograd through the composite (the card tests'
+# limits): dx within one bf16 step (float32: 1e-5 relative) plus
+# LN_DX_ATOL of its largest element; dweight and dbias within LN_DW_RTOL
+# of the sums of their terms' magnitudes (the same float32 terms over the
+# rows in another order)
+LN_DX_ATOL, LN_DW_RTOL = 2e-6, 1e-5
+
+
+def call_ms(fn, flush, reps=20, tries=3):
+    """Median device ms of one call of ``fn``: the sum of every kernel it
+    launches, from torch.profiler's CUDA events, with ``flush`` (larger
+    than the 50 MB L2) inverted before each call, so every call starts from
+    a cold L2; the inverting kernels (bitwise_not) mark the calls' bounds
+    and are not counted. None when ``tries`` windows recorded no call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.bitwise_not_()
+                fn()
+            flush.bitwise_not_()
+            torch.cuda.synchronize()
+        events = sorted((ev.time_range.start, ev.time_range.elapsed_us(),
+                         ev.name) for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA)
+        calls, current = [], None
+        for _, us, name in events:
+            if "bitwise_not" in name:
+                if current:
+                    calls.append(sum(current))
+                current = []
+            elif current is not None:
+                current.append(us)
+        if calls:
+            return statistics.median(calls) / 1e3
+        log(f"[timing] profiler window {attempt + 1} recorded no call; "
+            f"profiling again")
+    return None
+
+
+def _ln_backward_readings(got, want, x, dy, stats):
+    """dx, dweight and dbias against autograd through the composite, each
+    its worst error as a share of its limit (LN_DX_ATOL, LN_DW_RTOL)."""
+    import torch
+    (dx, dw, db), (dx_ref, dw_ref, db_ref) = got, want
+    diff = (dx.float() - dx_ref.float()).abs()
+    if dx.dtype == torch.bfloat16:
+        big = torch.maximum(dx.float().abs(), dx_ref.float().abs())
+        _, exp = torch.frexp(big)
+        rel = torch.ldexp(torch.ones_like(big), exp - 8)
+    else:
+        rel = 1e-5 * dx_ref.float().abs()
+    share = {"dx": float((diff / (rel + LN_DX_ATOL * float(
+        dx_ref.float().abs().max()))).max())}
+    xhat = (x.float() - stats[:, :1]) * stats[:, 1:].abs()
+    dyf = dy.float()
+    for name, g, r, mag in (("dweight", dw, dw_ref, (dyf * xhat).abs().sum(0)),
+                            ("dbias", db, db_ref, dyf.abs().sum(0))):
+        share[name] = float(((g - r).abs() / (LN_DW_RTOL * mag + 1e-30)).max())
+    return share
+
+
+def ln_least_bytes(rows, x_elem, y_elem, backward):
+    """The fewest bytes a LayerNorm call moves: forward, x read and y
+    written once, 8 bytes of statistics a row written, weight and bias read;
+    backward, x and dy read and dx written once, the statistics and weight
+    read, dweight and dbias written."""
+    if backward:
+        return rows * LN_D * (2 * x_elem + y_elem) + 8 * rows + 3 * LN_D * 4
+    return rows * LN_D * (x_elem + y_elem) + 8 * rows + 2 * LN_D * 4
+
+
+def phase_layer_norm(dev):
+    """Phase 15: the LayerNorm kernels against the plain composite
+    (row_layer_norm.layer_norm_reference) on the card, at each of LN_ROWS
+    x 512, x in bf16 and in f32, y in bf16: the forward's statistics
+    against float64 ones and its y against the composite's within
+    torch_port_fixtures.LAYER_NORM_ULPS (layer_norm_errors; the readings
+    print beside the composite's own), y the composite's formula at the
+    kernel's statistics bit for bit, one launch of each kernel a pass
+    counted on the card, the backward against autograd through the
+    composite and twice bit for bit; then in bf16 at each row count each
+    kernel's cold-L2 device time (the backward's two launches together)
+    beside its least-bytes bound, the composite's time (CUDA events) and
+    F.layer_norm's (cold L2, weight and bias in bf16)."""
+    import torch
+    import torch.nn.functional as F
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    from torch_port_fixtures import (LAYER_NORM_ULPS, layer_norm_errors,
+                                     layer_norm_stats)
+    from graphvqa_tpu_torch.ops import row_layer_norm as rln
+    gen = torch.Generator(device=dev).manual_seed(15)
+    w = torch.randn(LN_D, generator=gen, device=dev) * 0.5 + 1.0
+    b = torch.randn(LN_D, generator=gen, device=dev) * 0.1
+    bf16 = torch.bfloat16
+    worst = dict.fromkeys(("mean", "rstd", "y.bfloat16", "dx", "dweight",
+                           "dbias"), 0.0)
+    inputs = {}
+    for rows in LN_ROWS:
+        x32 = (torch.randn(rows, 1, generator=gen, device=dev) * 0.5
+               + torch.randn(rows, LN_D, generator=gen, device=dev)
+               * torch.rand(rows, 1, generator=gen, device=dev).mul(2).add(
+                   0.5))
+        dy = torch.randn(rows, LN_D, generator=gen, device=dev).to(bf16)
+        inputs[rows] = (x32.to(bf16), dy)
+        for x in (x32.to(bf16), x32):
+            name = f"{rows} x {LN_D} {str(x.dtype)[6:]} -> bfloat16"
+            runs = []
+            for fn in (rln.layer_norm, rln.layer_norm_reference):
+                xx, ww, bb = (t.detach().clone().requires_grad_()
+                              for t in (x, w, b))
+                before = launch_counts()[2:]
+                y = fn(xx, ww, bb, LN_EPS, bf16)
+                y.backward(dy)
+                torch.cuda.synchronize()
+                runs.append((y.detach(), (xx.grad, ww.grad, bb.grad),
+                             tuple(n - m for n, m in zip(launch_counts()[2:],
+                                                         before))))
+            (y, grads, counted), (y_ref, grads_ref, _) = runs
+            if counted != (1, 1):
+                fail(f"layer_norm {name}: one pass through autograd counted "
+                     f"{counted} launches, expected (1, 1)")
+            _, stats = rln.layer_norm_forward(x, w, b, LN_EPS, bf16,
+                                              keep_stats=True)
+            read = dict(zip(("mean", "rstd", "y.bfloat16"),
+                            layer_norm_errors(x, w, b, stats, y, y_ref)))
+            own = layer_norm_errors(x, w, b, layer_norm_stats(x), y_ref,
+                                    y_ref)
+            formula = ((x.float() - stats[:, :1])
+                       * (stats[:, 1:].abs() * w) + b).to(bf16)
+            if not torch.equal(y, formula):
+                fail(f"layer_norm {name}: y is not the composite's formula "
+                     f"at the kernel's own statistics")
+            for key, v in read.items():
+                if not v <= LAYER_NORM_ULPS[key]:
+                    fail(f"layer_norm {name}: {key} error {v:.2f} f32 ulps "
+                         f"beyond {LAYER_NORM_ULPS[key]}")
+            share = _ln_backward_readings(grads, grads_ref, x, dy, stats)
+            for key, v in share.items():
+                if not v <= 1.0:
+                    fail(f"layer_norm_backward {name}: {key} error at "
+                         f"{v:.2f} of its limit")
+            first = rln.layer_norm_backward(dy, x, w, stats)
+            again = rln.layer_norm_backward(dy, x, w, stats)
+            if not all(torch.equal(a, c) for a, c in zip(first, again)):
+                fail(f"layer_norm_backward {name}: two runs differ")
+            for key, v in {**read, **share}.items():
+                worst[key] = max(worst[key], v)
+            log(f"[layer-norm] {name}: forward mean {read['mean']:.2f}, "
+                f"rstd {read['rstd']:.2f}, y {read['y.bfloat16']:.2f} f32 "
+                f"ulps (the composite's statistics: mean {own[0]:.2f}, rstd "
+                f"{own[1]:.2f}); y the formula at its statistics bit for "
+                f"bit; backward dx {share['dx']:.3f}, dweight "
+                f"{share['dweight']:.3f}, dbias {share['dbias']:.3f} of "
+                f"their limits, two runs bit for bit")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    timing = {}
+    for rows in LN_ROWS:
+        x, dy = inputs[rows]
+        _, stats = rln.layer_norm_forward(x, w, b, LN_EPS, bf16,
+                                          keep_stats=True)
+        fwd = lambda: rln.layer_norm_forward(  # noqa: E731
+            x, w, b, LN_EPS, bf16, keep_stats=True)
+        bwd = lambda: rln.layer_norm_backward(dy, x, w, stats)  # noqa: E731
+        xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, b))
+        y_plain = rln.layer_norm_reference(xg, wg, bg, LN_EPS, bf16)
+        xl, wl, bl = (t.clone().requires_grad_()
+                      for t in (x, w.to(bf16), b.to(bf16)))
+        y_lib = F.layer_norm(xl, (LN_D,), wl, bl, LN_EPS)
+        with torch.no_grad():
+            plain_fwd = cuda_median_ms(lambda: rln.layer_norm_reference(
+                x, w, b, LN_EPS, bf16))
+            lib_fwd = call_ms(lambda: F.layer_norm(
+                x, (LN_D,), wl, bl, LN_EPS), flush)
+        plain_bwd = cuda_median_ms(lambda: torch.autograd.grad(
+            y_plain, (xg, wg, bg), dy, retain_graph=True))
+        lib_bwd = call_ms(lambda: torch.autograd.grad(
+            y_lib, (xl, wl, bl), dy, retain_graph=True), flush)
+        for kind, fn, plain, lib in (("forward", fwd, plain_fwd, lib_fwd),
+                                     ("backward", bwd, plain_bwd, lib_bwd)):
+            ms = call_ms(fn, flush)
+            if ms is None:
+                fail(f"torch.profiler recorded no layer_norm {kind} call")
+            nbytes = ln_least_bytes(rows, 2, 2, kind == "backward")
+            # about 8 and 14 float32 operations an element
+            flops = (8 if kind == "forward" else 14) * rows * LN_D
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_F32_FLOPS * 1e3
+            bound = max(t_bytes, t_ops)
+            timing[(kind, rows)] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bound, library_ms=lib,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            host_us = host_us_per_call(fn)
+            log(f"[layer-norm] {kind:8s} {rows:5d} x {LN_D} bf16: device "
+                f"{ms * 1e3:.2f}us cold-L2 ({100 * bound / ms:.1f}% of "
+                f"bound); wrapper host {host_us:.2f}us/call; composite "
+                f"{plain * 1e3:.1f}us (events); F.layer_norm "
+                + (f"{lib * 1e3:.2f}us cold-L2" if lib is not None
+                   else "not recorded")
+                + f"; bound {bound * 1e3:.2f}us ({nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.3f} GFLOP)")
+    log(f"[layer-norm] worst readings: forward mean {worst['mean']:.2f}, "
+        f"rstd {worst['rstd']:.2f}, y {worst['y.bfloat16']:.2f} f32 ulps "
+        f"(limits "
+        f"{LAYER_NORM_ULPS}); backward dx {worst['dx']:.3f}, dweight "
+        f"{worst['dweight']:.3f}, dbias {worst['dbias']:.3f} of their limits")
+    return dict(worst=worst, timing=timing)
+
+
+def layer_norm_summary(kind, phase, serve, train, cli, families, multi,
+                       graphs):
+    """The kernels line's entry of the LayerNorm forward or backward: the
+    launches of every path, counted on the card (the index into the
+    launch_counts() tuples), phase 15's worst readings and its times at
+    16,000 rows in bf16 (and at each row count)."""
+    k = 2 if kind == "forward" else 3
+    name = "layer_norm" if kind == "forward" else "layer_norm_backward"
+    paths = {"serve": serve[k], "train": train[k], "cli": cli[name],
+             **{f: families[f][name] for f in FAMILIES},
+             "dp": multi["dp"][k], "edge": multi["edge"][k],
+             "edge_2x2": multi["edge_2x2"][k], "cli_dist": multi["cli"][k],
+             "graphs_eval": graphs["eval_forward"][k],
+             "graphs_train": graphs["train"][k]}
+    if kind == "backward":
+        del paths["serve"], paths["graphs_eval"]
+    main = phase["timing"][(kind, 16000)]
+    worst = phase["worst"]
+    errs = (("mean", "rstd", "y.bfloat16") if kind == "forward"
+            else ("dx", "dweight", "dbias"))
+    return {"name": name, "route": "cuda",
+            "source": "graphvqa_tpu_torch/csrc/layer_norm.cu",
+            "replaces": "none: XLA's fusion of flax nn.LayerNorm "
+                        "(graphvqa_tpu/nn/transformer.py:183)",
+            "launches": train[k], "launches_by_path": paths,
+            ("max_err_f32_ulps" if kind == "forward"
+             else "max_err_share_of_limit"): {e: worst[e] for e in errs},
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "ms_by_rows": {r: phase["timing"][(kind, r)]["ms"]
+                           for r in LN_ROWS}}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -3125,11 +3463,11 @@ def main() -> None:
         f"{sum(p.numel() for p in model.parameters())} dtype {cfg.model.dtype}")
     phase_parity(cfg, dev, model)
     done("4 parity")
-    serve_launches, step, request = phase_serve(cfg, dev, model)
+    serve, step, request = phase_serve(cfg, dev, model)
     done("5 serve")
     phase_profile(model, step, request)
     done("6 profile")
-    train_fwd, train_bwd = phase_train(cfg, dev, model)
+    train = phase_train(cfg, dev, model)
     done("7 train")
     del model, step, request
     phase_train_parity(dev)
@@ -3146,6 +3484,8 @@ def main() -> None:
     done("13 multi")
     graphs = phase_graphs(dev, data)
     done("14 graphs")
+    layer_norm = phase_layer_norm(dev)
+    done("15 layer-norm")
 
     card = card_line()
     fwd = kernel[("bfloat16", "graph", True)]
@@ -3154,14 +3494,14 @@ def main() -> None:
         "name": "gat_round", "route": "cuda",
         "source": "graphvqa_tpu_torch/csrc/gat_round.cu",
         "replaces": "graphvqa_tpu/ops/pallas/fused_dense_gat.py:44",
-        "launches": train_fwd,
-        "launches_by_path": {"serve": serve_launches, "train": train_fwd,
+        "launches": train[0],
+        "launches_by_path": {"serve": serve[0], "train": train[0],
                              "cli": cli["forward"],
                              "onlysg": families["onlysg"]["forward"],
                              "exec": families["exec"]["forward"],
                              "dp": multi["dp"][0], "edge": multi["edge"][0],
                              "edge_2x2": multi["edge_2x2"][0],
-                             "graphs_eval": graphs["eval_forward"],
+                             "graphs_eval": graphs["eval_forward"][0],
                              "graphs_train": graphs["train"][0]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ladder_max_abs_err": ladder["forward"],
@@ -3176,8 +3516,8 @@ def main() -> None:
         "source": "graphvqa_tpu_torch/csrc/gat_round_backward.cu",
         "replaces": "none: XLA autodiff of "
                     "graphvqa_tpu/ops/dense.py:350 dense_gat_aggregate",
-        "launches": train_bwd,
-        "launches_by_path": {"train": train_bwd, "cli": cli["backward"],
+        "launches": train[1],
+        "launches_by_path": {"train": train[1], "cli": cli["backward"],
                              "onlysg": families["onlysg"]["backward"],
                              "exec": families["exec"]["backward"],
                              "dp": multi["dp"][1], "edge": multi["edge"][1],
@@ -3191,7 +3531,9 @@ def main() -> None:
                      for (k, n), r in multi["kernels"].items()},
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None}] + [layer_norm_summary(
+            kind, layer_norm, serve, train, cli, families, multi, graphs)
+            for kind in ("forward", "backward")]}
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)
     print(json.dumps(summary))

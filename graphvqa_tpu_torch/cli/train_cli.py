@@ -297,10 +297,11 @@ def build_config(args, text_vocab_size: int, sg_vocab_size: int):
 
 
 def _launches():
-    """(gat_round, gat_round_backward) kernel launches so far, as the
-    kernels counted them on the card (replays of the step graphs too)."""
-    from graphvqa_tpu_torch.ops.gat_round import launch_counts
-    return launch_counts()
+    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward)
+    kernel launches so far, as the kernels counted them on the card
+    (replays of the step graphs too)."""
+    from graphvqa_tpu_torch.ops import gat_round, row_layer_norm
+    return gat_round.launch_counts() + row_layer_norm.launch_counts()
 
 
 def _print_graphs(what, step, mesh) -> None:
@@ -324,7 +325,9 @@ def _print_graphs(what, step, mesh) -> None:
 def _print_launches(what, before):
     now = _launches()
     print(f"kernel launches ({what}): gat_round {now[0] - before[0]}, "
-          f"gat_round_backward {now[1] - before[1]}")
+          f"gat_round_backward {now[1] - before[1]}, "
+          f"layer_norm {now[2] - before[2]}, "
+          f"layer_norm_backward {now[3] - before[3]}")
 
 
 def _print_segments(what) -> None:

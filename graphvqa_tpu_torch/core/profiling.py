@@ -175,7 +175,7 @@ def _load() -> ctypes.CDLL:
     per source content) and load it."""
     global _library
     if _library is None:
-        from graphvqa_tpu_torch.ops.gat_round import build_sources
+        from graphvqa_tpu_torch.ops.cuda_lib import build_sources
         paths, _, _ = build_sources({"stamp": _SOURCE})
         lib = ctypes.CDLL(str(paths["stamp"]))
         lib.segment_stamp_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,

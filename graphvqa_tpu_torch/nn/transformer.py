@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from graphvqa_tpu_torch.ops.row_layer_norm import layer_norm
+
 KV = Tuple[torch.Tensor, torch.Tensor]
 
 
@@ -78,7 +80,9 @@ def block_causal_mask(blocks: int, length: int,
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm(epsilon=1e-5, dtype=dtype)`` semantics."""
+    """flax ``nn.LayerNorm(epsilon=1e-5, dtype=dtype)`` semantics: plain
+    tensor code on the CPU, the hand-written kernels on the card
+    (``ops/row_layer_norm.py``)."""
 
     def __init__(self, d: int, eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32):
@@ -88,11 +92,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp(min=0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(self.compute_dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps,
+                          self.compute_dtype)
 
 
 class MultiheadAttention(nn.Module):

@@ -1,0 +1,171 @@
+"""The port's hand-written CUDA libraries: their build, their launch on the
+current stream, and the launch counts the kernels keep on the card.
+
+Each ``csrc/*.cu`` source builds with nvcc for sm_90a into a shared library
+of its own under ``build/graphvqa_tpu_torch/``, cached by the source's
+content and the flags, and is bound with ctypes by the op module that
+launches it. :func:`kernel_libraries` builds the model's kernel sources
+(:data:`KERNEL_SOURCES`) at their first use, one nvcc each, all started
+together, so a first step waits for the slowest build, not for their sum.
+
+:func:`launch` calls a library's launcher with the current stream of a
+tensor's card. Each kernel counts its own launches where it runs: block 0
+adds one to a 64-bit word of its kind on its card (:func:`launch_word`), so
+a CUDA graph's replay, which runs no Python, counts its launches as eager
+calls do (:func:`launch_counts`, :func:`reset_launch_counts`).
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import NamedTuple, Optional
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+# the kernels the model runs, by name (a library each, built together)
+KERNEL_SOURCES = {name: CSRC / f"{name}.cu"
+                  for name in ("gat_round", "gat_round_backward",
+                               "layer_norm")}
+_BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
+              / "build" / "graphvqa_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# cudaErrorStreamCaptureUnsupported: the libraries' answer to a launch that
+# would set a kernel attribute while its stream is capturing
+_CAPTURE_UNSUPPORTED = 900
+
+
+class Built(NamedTuple):
+    """Built libraries: {name: path}, the build log, the build's wall
+    seconds (0 where every library was cached)."""
+    paths: dict
+    log: str
+    build_seconds: float
+
+
+_built: Optional[Built] = None
+# per (kind, device index): the int64 word on that card to which each
+# launch of the kind adds one
+_launch_words: dict = {}
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels (csrc/)")
+
+
+def build_sources(sources: dict) -> Built:
+    """nvcc on each ``{name: source}`` into a shared library of its own
+    under ``build/graphvqa_tpu_torch/`` (cached by the source's content and
+    the flags; the builds run in parallel)."""
+    paths, jobs, logs = {}, {}, []
+    t0 = time.perf_counter()
+    for key, src in sources.items():
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = paths[key] = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
+        if out.exists():
+            logs.append(f"{src.name}: cached build")
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True),
+                     tmp, out, src)
+    failed = []
+    for proc, tmp, out, src in jobs.values():
+        text, _ = proc.communicate()
+        logs.append(f"{src.name}:\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):"
+                          f"\n{text}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return Built(paths, "\n".join(logs),
+                 time.perf_counter() - t0 if jobs else 0.0)
+
+
+def kernel_libraries() -> Built:
+    """:data:`KERNEL_SOURCES` built (on the first call; module doc)."""
+    global _built
+    if _built is None:
+        _built = build_sources(KERNEL_SOURCES)
+    return _built
+
+
+def device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def on_device(dev: torch.device, fn, *args):
+    """``fn(*args)`` with ``dev``'s card current (switched only when
+    needed): the libraries launch on, and ask about, the current device."""
+    index = device_index(dev)
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
+
+
+def launch(fn, args, dev, what):
+    """Call a library launcher with the current stream of ``dev``'s card
+    last; raise on the CUDA error it returns."""
+    stream = torch.cuda.current_stream(device_index(dev)).cuda_stream
+    err = on_device(dev, fn, *args, stream)
+    if err == _CAPTURE_UNSUPPORTED:
+        raise RuntimeError(
+            f"{what} met new widths inside a CUDA graph capture: the kernel "
+            f"sets its shared-memory attribute on an eager launch, so run "
+            f"the step once eagerly at this batch shape before capturing it")
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def launch_word(kind: str, dev: torch.device) -> torch.Tensor:
+    """``kind``'s launch count on ``dev``'s card, made on its first eager
+    launch there (one made in a capture would lie in the graph's pool)."""
+    key = (kind, device_index(dev))
+    word = _launch_words.get(key)
+    if word is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{kind} launches on {dev} for the first time inside a CUDA "
+                f"graph capture: run the step once eagerly before capturing")
+        # a normal tensor even when the first launch is an eval step's,
+        # so that reset_launch_counts may zero it anywhere
+        with torch.inference_mode(False):
+            word = _launch_words[key] = torch.zeros(1, dtype=torch.int64,
+                                                    device=dev)
+    return word
+
+
+def launch_counts(kinds) -> tuple:
+    """Each of ``kinds``' launches on every card since the last
+    :func:`reset_launch_counts`, as the kernels counted them where they ran:
+    eager launches and those of CUDA graph replays alike. Reads the cards,
+    so it waits for the work queued on them; 0 where no kernel of the kind
+    has launched."""
+    return tuple(sum(int(w.item()) for (k, _), w in _launch_words.items()
+                     if k == kind) for kind in kinds)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counts on every card to 0 (on the current
+    stream)."""
+    for word in _launch_words.values():
+        word.zero_()

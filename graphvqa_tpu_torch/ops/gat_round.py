@@ -35,9 +35,9 @@ that would need either while its stream captures raises instead. Each
 launch counts itself where it runs: block 0 adds one to a 64-bit word of
 its kernel on its card, so a graph's replay, which runs no Python, counts
 its launches as eager calls do (:func:`launch_counts`,
-:func:`reset_launch_counts`). A replay also sets no Python attribute, so
-the step graphs point ``gat_round_backward.counter`` at the replayed graph's
-counter, which holds its count once the replay has run.
+``cuda_lib.reset_launch_counts``). A replay also sets no Python attribute,
+so the step graphs point ``gat_round_backward.counter`` at the replayed
+graph's counter, which holds its count once the replay has run.
 
 The wrapper takes each graph's edges as the dense packing lays them out
 (``core/packing.py:pack_graphs_dense``): the real edges first, sorted by
@@ -47,46 +47,32 @@ on the card the kernel's device assert stops it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 from typing import Optional
 
 import torch
 
+from graphvqa_tpu_torch.ops import cuda_lib
 from graphvqa_tpu_torch.ops.dense import NEG_INF, SOFTMAX_EPS
 
-_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-# each source builds into a library of its own; the builds run in parallel
-_SOURCES = {"forward": _CSRC / "gat_round.cu",
-            "backward": _CSRC / "gat_round_backward.cu"}
-_BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
-              / "build" / "graphvqa_tpu_torch")
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# cudaErrorStreamCaptureUnsupported: the libraries' answer to a launch that
-# would set a kernel attribute while its stream is capturing
-_CAPTURE_UNSUPPORTED = 900
 _SHIFTS = ("graph", "dst")
 
 
 class KernelLibrary:
-    """The built shared libraries (``fwd``, ``bwd``), their paths, the build
-    log and the build's wall time."""
+    """The GAT pair's libraries (``fwd``, ``bwd``) bound, and every kernel
+    library's paths, the build log and the build's wall time
+    (``cuda_lib.kernel_libraries``)."""
 
-    def __init__(self, paths: dict, log: str, build_seconds: float):
-        self.paths, self.log, self.build_seconds = paths, log, build_seconds
+    def __init__(self, built: cuda_lib.Built):
+        paths, self.log, self.build_seconds = built
+        self.paths = paths
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fwd = ctypes.CDLL(str(paths["forward"]))
+        fwd = ctypes.CDLL(str(paths["gat_round"]))
         fwd.gat_round_launch.argtypes = [ci] + [vp] * 14 + [ci] * 5 + [cf, ci, vp]
         fwd.gat_round_launch.restype = ci
         fwd.gat_round_smem_bytes.argtypes = [ci] * 5
         fwd.gat_round_smem_bytes.restype = ctypes.c_size_t
-        bwd = ctypes.CDLL(str(paths["backward"]))
+        bwd = ctypes.CDLL(str(paths["gat_round_backward"]))
         bwd.gat_round_backward_launch.argtypes = (
             [ci] + [vp] * 18 + [ci] * 5 + [cf, ci, vp])
         bwd.gat_round_backward_launch.restype = ci
@@ -100,66 +86,16 @@ _library: Optional[KernelLibrary] = None
 # epg, H, C, dtype): the least the kernel needs. Both fixed for a process.
 _smem_limit: dict = {}
 _smem_need: dict = {}
-# per (kernel, device index): the int64 word on that card to which each
-# launch of the kernel adds one
 _KINDS = ("gat_round", "gat_round_backward")
-_launch_words: dict = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = pathlib.Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the port's kernels (csrc/)")
 
 
 def load_library() -> KernelLibrary:
-    """Build ``csrc/gat_round.cu`` and ``csrc/gat_round_backward.cu`` into
-    ``build/graphvqa_tpu_torch/`` (once per source content; one nvcc per
-    source, all started together) and load them."""
+    """Build the kernel sources (``cuda_lib.kernel_libraries``, once per
+    source content, in parallel) and load the GAT pair."""
     global _library
     if _library is None:
-        _library = KernelLibrary(*build_sources(_SOURCES))
+        _library = KernelLibrary(cuda_lib.kernel_libraries())
     return _library
-
-
-def build_sources(sources: dict) -> tuple:
-    """nvcc on each ``{key: source}`` into a shared library of its own under
-    ``build/graphvqa_tpu_torch/`` (cached by the source's content and the
-    flags; the builds run in parallel) -> ({key: library path}, the build
-    log, the wall seconds of the builds run)."""
-    paths, jobs, logs = {}, {}, []
-    t0 = time.perf_counter()
-    for key, src in sources.items():
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = paths[key] = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
-        if out.exists():
-            logs.append(f"{src.name}: cached build")
-            continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
-        jobs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True),
-                     tmp, out, src)
-    failed = []
-    for proc, tmp, out, src in jobs.values():
-        text, _ = proc.communicate()
-        logs.append(f"{src.name}:\n{text}")
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):"
-                          f"\n{text}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return paths, "\n".join(logs), time.perf_counter() - t0 if jobs else 0.0
 
 
 def _check(name, t, shape, dtypes, device):
@@ -332,17 +268,13 @@ def gat_round_backward_reference(grad_out, dl, sl, mask, alpha_l, alpha_r,
     return (d_xw.to(xw.dtype), d_al, d_ar, dz.reshape(B, epg, H), d_ins)
 
 
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
-
-
 def _smem_check(kind, need_fn, key, dev):
     """Raise when a block of ``kind`` at these widths needs more shared
     memory than the card lets a block opt into."""
     need = _smem_need.get((kind,) + key)
     if need is None:
         need = _smem_need[(kind,) + key] = need_fn()
-    index = _device_index(dev)
+    index = cuda_lib.device_index(dev)
     limit = _smem_limit.get(index)
     if limit is None:
         limit = _smem_limit[index] = getattr(
@@ -354,57 +286,13 @@ def _smem_check(kind, need_fn, key, dev):
                          f"allows {limit}")
 
 
-def _launch(fn, args, dev, what):
-    """Call a library launcher on the current stream of ``dev``'s card."""
-    index = _device_index(dev)
-    stream = torch.cuda.current_stream(index).cuda_stream
-    # the library launches on the current device: switch only when needed
-    if torch.cuda.current_device() == index:
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, stream)
-    if err == _CAPTURE_UNSUPPORTED:
-        raise RuntimeError(
-            f"{what} met new widths inside a CUDA graph capture: the kernel "
-            f"sets its shared-memory attribute on an eager launch, so run "
-            f"the step once eagerly at this batch shape before capturing it")
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-
-
-def _launch_word(kind: str, dev: torch.device) -> torch.Tensor:
-    """``kind``'s launch count on ``dev``'s card, made on its first eager
-    launch there (one made in a capture would lie in the graph's pool)."""
-    key = (kind, _device_index(dev))
-    word = _launch_words.get(key)
-    if word is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                f"{kind} launches on {dev} for the first time inside a CUDA "
-                f"graph capture: run the step once eagerly before capturing")
-        # a normal tensor even when the first launch is an eval step's,
-        # so that reset_launch_counts may zero it anywhere
-        with torch.inference_mode(False):
-            word = _launch_words[key] = torch.zeros(1, dtype=torch.int64,
-                                                    device=dev)
-    return word
-
-
 def launch_counts() -> tuple:
     """(gat_round, gat_round_backward) launches on every card since the
-    last :func:`reset_launch_counts`, as the kernels counted them where they
-    ran: eager launches and those of CUDA graph replays alike. Reads the
-    cards, so it waits for the work queued on them; (0, 0) where no kernel
-    has launched (on the CPU, the plain versions run)."""
-    return tuple(sum(int(w.item()) for (k, _), w in _launch_words.items()
-                     if k == kind) for kind in _KINDS)
-
-
-def reset_launch_counts() -> None:
-    """Set every card's launch counts to 0 (on the current stream)."""
-    for word in _launch_words.values():
-        word.zero_()
+    last ``cuda_lib.reset_launch_counts()``, as the kernels counted them
+    where they ran: eager launches and those of CUDA graph replays alike.
+    Reads the cards, so it waits for the work queued on them; (0, 0) where
+    no kernel has launched (on the CPU, the plain versions run)."""
+    return cuda_lib.launch_counts(_KINDS)
 
 
 def _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
@@ -473,9 +361,9 @@ def _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
             _ptr(keep_scale), _ptr(shift_max), xw.data_ptr(), _ptr(ins_value),
             out.data_ptr(),
             _ptr(alpha), counter.data_ptr(),
-            _launch_word("gat_round", dev).data_ptr(), B, npg, epg, H, C,
-            float(negative_slope), int(shift == "graph"))
-    _launch(lib.fwd.gat_round_launch, args, dev, "gat_round")
+            cuda_lib.launch_word("gat_round", dev).data_ptr(), B, npg, epg,
+            H, C, float(negative_slope), int(shift == "graph"))
+    cuda_lib.launch(lib.fwd.gat_round_launch, args, dev, "gat_round")
     return out, alpha
 
 
@@ -518,10 +406,10 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
             _ptr(ins_value), grad_out.data_ptr(), d_xw.data_ptr(), d_al.data_ptr(),
             d_ar.data_ptr(), d_ae.data_ptr(), _ptr(d_ins),
             counter.data_ptr(),
-            _launch_word("gat_round_backward", dev).data_ptr(), B, npg, epg,
-            H, C, float(negative_slope), int(shift == "graph"))
-    _launch(lib.bwd.gat_round_backward_launch, args, dev,
-            "gat_round_backward")
+            cuda_lib.launch_word("gat_round_backward", dev).data_ptr(), B,
+            npg, epg, H, C, float(negative_slope), int(shift == "graph"))
+    cuda_lib.launch(lib.bwd.gat_round_backward_launch, args, dev,
+                    "gat_round_backward")
     gat_round_backward.counter = counter
     return d_xw, d_al, d_ar, d_ae, d_ins
 

@@ -1,5 +1,6 @@
-"""The GAT-round CUDA kernels (forward and backward) against their plain
-PyTorch twins, on the card.
+"""The port's CUDA kernels (the GAT round and the Transformer stacks'
+LayerNorm, forward and backward) against their plain PyTorch twins, on the
+card.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no JAX, so it runs
 on a machine that has only the port's dependencies:
@@ -28,9 +29,12 @@ from graphvqa_tpu_torch.ops.dense import dense_local_indices
 from graphvqa_tpu_torch.ops.gat_round import (
     gat_round, gat_round_backward, gat_round_backward_reference,
     gat_round_reference, launch_counts)
+from graphvqa_tpu_torch.ops import row_layer_norm as rln
 # a top-level import: pytest puts tests/ on sys.path, and the card's machine
 # may have another package named `tests`
-from torch_port_fixtures import tiny_gat_seq, tiny_train_case
+from torch_port_fixtures import (LAYER_NORM_ULPS, layer_norm_errors,
+                                 layer_norm_rows, layer_norm_stats,
+                                 tiny_gat_seq, tiny_train_case)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
@@ -1053,3 +1057,272 @@ def test_segment_stamps_in_the_replayed_train_step():
           f"stamps {1e6 * stamp_s / 5:.2f} us per step")
     assert 0.85 * busy <= total <= elapsed
     assert stamp_s <= 0.005 * busy
+
+
+# --- the Transformer stacks' LayerNorm kernels --------------------------------
+#
+# Held to the plain twin (the composite) on the card. The forward: the
+# kernel's statistics against float64 ones and y against the composite's,
+# within torch_port_fixtures.LAYER_NORM_ULPS (layer_norm_errors, which says
+# why one ulp of y cannot hold; each case prints its readings beside the
+# composite's own), and y the composite's formula at the kernel's own
+# statistics bit for bit. dx within 1e-5 (f32; bf16 one step) relative plus
+# 2e-6 of its largest element, dweight and dbias within 1e-5 of the sums of
+# the terms' magnitudes (the same float32 terms over up to 16,000 rows in
+# another order), against autograd through the composite.
+
+LN_ROWS = [1, 200, 1000, 6400, 16000]
+LN_PAIRS = [(torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+            (torch.float32, torch.bfloat16)]
+
+
+def _ln_inputs(kind, rows, d, x_dtype, seed, dev):
+    gen = torch.Generator().manual_seed(seed + 1)
+    w = torch.randn(d, generator=gen) * 0.5 + 1.0
+    b = torch.randn(d, generator=gen) * 0.1
+    x = layer_norm_rows(kind, rows, d, seed).to(x_dtype)
+    return x.to(dev), w.to(dev), b.to(dev)
+
+
+def _ln_both(x, w, b, y_dtype, dy):
+    """(kernel, composite) runs: each (y, dx, dweight, dbias, stats or
+    None), the composite through autograd on the card."""
+    out = []
+    for fn in (rln.layer_norm, rln.layer_norm_reference):
+        xx, ww, bb = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        y = fn(xx, ww, bb, 1e-5, y_dtype)
+        y.backward(dy)
+        out.append((y.detach(), xx.grad, ww.grad, bb.grad))
+    torch.cuda.synchronize()
+    return out
+
+
+def _ln_formula(x, w, b, y_dtype, stats):
+    """The composite's forward formula on the card with given statistics."""
+    mean, rstd = stats[:, :1], stats[:, 1:].abs()
+    xf = x.float().reshape(-1, x.shape[-1])
+    return ((xf - mean) * (rstd * w) + b).to(y_dtype).reshape(x.shape)
+
+
+def _bf16_step(got, want):
+    """One bfloat16 step at the larger magnitude of each pair."""
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    _, exp = torch.frexp(big)
+    return torch.ldexp(torch.ones_like(big), exp - 8)
+
+
+def _ln_check_forward(y, y_ref, x, w, b, stats):
+    got = layer_norm_errors(x, w, b, stats, y, y_ref)
+    own = layer_norm_errors(x, w, b, layer_norm_stats(x), y_ref, y_ref)
+    print(f"layer_norm {tuple(x.shape)} {x.dtype} -> {y.dtype}: kernel "
+          f"mean {got[0]:.2f}, rstd {got[1]:.2f}, y {got[2]:.2f} ulps; the "
+          f"composite's statistics mean {own[0]:.2f}, rstd {own[1]:.2f}")
+    keys = ("mean", "rstd", "y." + str(y.dtype)[6:])
+    for key, reading in zip(keys, got):
+        assert reading <= LAYER_NORM_ULPS[key], (key, reading)
+    assert torch.equal(y, _ln_formula(x, w, b, y.dtype, stats))
+
+
+def _ln_check_backward(got, want, x, dy, stats):
+    _, dx, dw, db = got
+    _, dx_ref, dw_ref, db_ref = want
+    scale = dx_ref.float().abs().max().item()
+    if dx.dtype == torch.bfloat16:
+        assert bool(((dx.float() - dx_ref.float()).abs()
+                     <= _bf16_step(dx, dx_ref) + 2e-6 * scale).all())
+    else:
+        torch.testing.assert_close(dx, dx_ref, rtol=1e-5, atol=2e-6 * scale)
+    d = x.shape[-1]
+    xhat = ((x.float().reshape(-1, d) - stats[:, :1]) * stats[:, 1:].abs())
+    dyf = dy.float().reshape(-1, d)
+    for g, r, mag in ((dw, dw_ref, (dyf * xhat).abs().sum(0)),
+                      (db, db_ref, dyf.abs().sum(0))):
+        assert g.dtype == torch.float32
+        assert bool(((g - r).abs() <= 1e-5 * mag + 1e-30).all())
+
+
+def _ln_case(kind, rows, d, x_dtype, y_dtype, seed):
+    dev = _device()
+    x, w, b = _ln_inputs(kind, rows, d, x_dtype, seed, dev)
+    dy = torch.randn(x.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(seed))
+    dy = dy.to(y_dtype)
+    f0 = rln.launch_counts()
+    got, want = _ln_both(x, w, b, y_dtype, dy)
+    assert tuple(n - m for n, m in zip(rln.launch_counts(), f0)) == (1, 1)
+    _, stats = rln.layer_norm_forward(x, w, b, 1e-5, y_dtype, keep_stats=True)
+    assert got[0].dtype == y_dtype and got[1].dtype == x_dtype
+    _ln_check_forward(got[0], want[0], x, w, b, stats)
+    _ln_check_backward(got, want, x, dy, stats)
+    return x, stats
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype", LN_PAIRS)
+@pytest.mark.parametrize("rows", LN_ROWS)
+def test_layer_norm_kernels_main_width(rows, x_dtype, y_dtype):
+    """D = 512, every row count the stacks meet (and 1): the forward, the
+    backward through autograd, one launch of each."""
+    _ln_case("random", rows, 512, x_dtype, y_dtype, seed=rows)
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype", LN_PAIRS)
+@pytest.mark.parametrize("rows,d", [(6400, 300), (1000, 1024), (200, 64),
+                                    (33, 7)])
+def test_layer_norm_kernels_other_widths(rows, d, x_dtype, y_dtype):
+    """Widths that take the one-element loads (300 in bf16, 7), the 32
+    elements a lane (1024) and the tiny model's 64."""
+    _ln_case("random", rows, d, x_dtype, y_dtype, seed=d)
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype", LN_PAIRS)
+def test_layer_norm_constant_and_zero_rows(x_dtype, y_dtype):
+    """Constant rows (in float32 x many round E[x^2] - E[x]^2 below 0, and
+    the kernel marks them clamped) and all-zero rows (y = bias exactly):
+    the output is the formula at the kernel's statistics bit for bit, the
+    mean is the row's value, and the backward is the closed form at the
+    kernel's statistics, clamped rows passing no gradient through the
+    variance."""
+    dev = _device()
+    d = 512
+    x = torch.cat([layer_norm_rows("constant", 256, d, seed=9),
+                   layer_norm_rows("zero", 16, d)]).to(x_dtype).to(dev)
+    w, b = _ln_inputs("zero", 1, d, torch.float32, 10, dev)[1:]
+    y, stats = rln.layer_norm_forward(x, w, b, 1e-5, y_dtype, keep_stats=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, _ln_formula(x, w, b, y_dtype, stats))
+    assert torch.equal(y[256:], b.to(y_dtype).expand(16, d))
+    torch.testing.assert_close(stats[:, 0], x[:, 0].float(), rtol=1e-6,
+                               atol=0)
+    clamped = stats[:, 1] < 0
+    if x_dtype == torch.float32:
+        assert bool(clamped.any()) and not bool(clamped.all())
+    else:
+        assert not bool(clamped.any())   # exact sums: the variance is 0
+    dy = torch.randn(x.shape, device=dev).to(y_dtype)
+    dx, dw, db = rln.layer_norm_backward(dy, x, w, stats)
+    g = dy.float() * w
+    mg = g.mean(dim=-1, keepdim=True)
+    xhat = (x.float() - stats[:, :1]) * stats[:, 1:].abs()
+    mgx = torch.where(clamped[:, None], 0.0,
+                      (g * xhat).mean(dim=-1, keepdim=True))
+    want = stats[:, 1:].abs() * (g - mg - xhat * mgx)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(dx.float(), want.to(x_dtype).float(),
+                               rtol=2.0 ** -7 if x_dtype == torch.bfloat16
+                               else 1e-5, atol=2e-6 * scale)
+    torch.testing.assert_close(db, dy.float().sum(0), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dw, (dy.float() * xhat).sum(0), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_layer_norm_replays_in_a_cuda_graph():
+    """Forward and backward captured once (autograd through the kernels)
+    and replayed on new rows: each replay equals the eager calls bit for
+    bit, and counts one launch of each kernel; the capture counts none."""
+    dev = _device()
+    x, w, b = _ln_inputs("random", 1000, 512, torch.bfloat16, 11, dev)
+    x = x.requires_grad_()
+    w.requires_grad_()
+    b.requires_grad_()
+    dy = torch.randn(1000, 512, device=dev).bfloat16()
+
+    def run():
+        for t in (x, w, b):
+            t.grad = None
+        y = rln.layer_norm(x, w, b, 1e-5, torch.bfloat16)
+        y.backward(dy)
+        return y
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = rln.launch_counts()
+    with torch.cuda.graph(graph):
+        y = run()
+    torch.cuda.synchronize()
+    assert rln.launch_counts() == before
+    grads = (x.grad, w.grad, b.grad)
+    for seed in (12, 13):
+        with torch.no_grad():
+            x.copy_(_ln_inputs("random", 1000, 512, torch.bfloat16, seed,
+                               dev)[0])
+        graph.replay()
+        torch.cuda.synchronize()
+        ref_y, ref_dx, ref_dw, ref_db = _ln_both(
+            x.detach(), w.detach(), b.detach(), torch.bfloat16, dy)[0]
+        assert torch.equal(y, ref_y)
+        for got, ref in zip(grads, (ref_dx, ref_dw, ref_db)):
+            assert torch.equal(got, ref)
+    # two replays plus the two eager comparisons
+    assert rln.launch_counts() == (before[0] + 4, before[1] + 4)
+
+
+def test_layer_norm_backward_runs_agree_bit_for_bit():
+    dev = _device()
+    x, w, b = _ln_inputs("random", 16000, 512, torch.bfloat16, 14, dev)
+    _, stats = rln.layer_norm_forward(x, w, b, 1e-5, torch.bfloat16,
+                                      keep_stats=True)
+    dy = torch.randn(16000, 512, device=dev).bfloat16()
+    first = rln.layer_norm_backward(dy, x, w, stats)
+    second = rln.layer_norm_backward(dy, x, w, stats)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_layer_norm_launches_per_step_under_replay(monkeypatch):
+    """gat_config()'s train step and eval request at B=64, replayed as CUDA
+    graphs: every replay launches the LayerNorm kernels as often as the
+    eager warm-up called the module, forward 27 a train step (7 in the
+    question encoder, 10 in the coarse and 10 in the teacher-forced program
+    decoder) and 357 an eval request (7 + 10 + 15 greedy steps x 10 + 19 x
+    10), backward 17 a train step: the teacher-forced decoder's logits
+    reach no loss while the program loss is off (gat_config()), so autograd
+    runs no backward through its 10; and the composite never runs on the
+    card."""
+    from graphvqa_tpu_torch.config import gat_config
+    from graphvqa_tpu_torch.models.pipeline import build_model
+    from graphvqa_tpu_torch.nn.transformer import LayerNorm
+    from graphvqa_tpu_torch.train.loop import make_eval_step, make_train_step
+    from graphvqa_tpu_torch.train.train_state import create_train_state
+    dev = _device()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain LayerNorm ran on the card")
+
+    monkeypatch.setattr(rln, "layer_norm_reference", refuse)
+    cfg = gat_config()
+    model = build_model(cfg.model, device=dev, seed=0)
+    state = create_train_state(model)
+    batch = _gqa_batch(cfg, 64, seed=15).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    calls = []
+    hooks = [m.register_forward_hook(lambda *a: calls.append(1))
+             for m in model.modules() if isinstance(m, LayerNorm)]
+    train_step = make_train_step(model, cfg)
+    eval_step = make_eval_step(model, cfg)
+    train_step(state, batch, gen)            # the eager warm-ups
+    train_calls = len(calls)
+    eval_step(batch)
+    eval_calls = len(calls) - train_calls
+    for h in hooks:
+        h.remove()
+    assert (train_calls, eval_calls) == (27, 357)
+    assert not cfg.train.use_program_loss
+    train_backward = train_calls - 10
+    train_step(state, batch, gen)            # the captures
+    eval_step(batch)
+    for _ in range(2):
+        f0 = rln.launch_counts()
+        train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        assert tuple(n - m for n, m in zip(rln.launch_counts(), f0)) == (
+            train_calls, train_backward)
+        f0 = rln.launch_counts()
+        eval_step(batch)
+        torch.cuda.synchronize()
+        assert tuple(n - m for n, m in zip(rln.launch_counts(), f0)) == (
+            eval_calls, 0)
+    assert train_step.graphs.replays == 3 and eval_step.graphs.replays == 3

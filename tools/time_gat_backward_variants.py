@@ -63,15 +63,15 @@ def build(sources: dict) -> dict:
     build/variants/ -> {name: library path} of the builds that succeeded;
     prints each build's registers, spills and SASS size."""
     sys.path.insert(0, str(ROOT))
-    from graphvqa_tpu_torch.ops import gat_round as gr
+    from graphvqa_tpu_torch.ops import cuda_lib
     OUT.mkdir(parents=True, exist_ok=True)
-    nvcc = gr._nvcc()
+    nvcc = cuda_lib.nvcc()
     cuobjdump = str(pathlib.Path(nvcc).with_name("cuobjdump"))
     jobs = {}
     for name, src in sources.items():
         lib = OUT / f"lib{name}.so"
         jobs[name] = (subprocess.Popen(
-            [nvcc, *gr._NVCC_FLAGS, "-o", str(lib), str(src)],
+            [nvcc, *cuda_lib.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in jobs.items():
