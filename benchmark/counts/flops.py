@@ -4,9 +4,9 @@ count, for the share of the chip's peak).
 
 A product of an [m, k] by a [k, n] matrix counts 2 m k n. Counted: every
 linear layer, the attention score and value products (the causal ones over
-the positions a query may see), the GAT round's weighted sums and the LCGN
-cell's edge products, on each question's real nodes and edges and on its
-real tokens: the question's non-padding tokens, each program stream's
+the positions a query may see) and the engine's products (``flops`` of its
+file, ``engines/<kind>.py``), on each question's real nodes and edges and
+on its real tokens: the question's non-padding tokens, each program stream's
 non-padding teacher-forced inputs in training, and every decoded position
 in greedy decoding. Not counted: padding rows, embeddings (gathers),
 softmaxes, norms and other elementwise work. Training counts the forward
@@ -15,6 +15,8 @@ three times (the backward as twice the forward); nothing recomputed counts.
 from __future__ import annotations
 
 import numpy as np
+
+import engines
 
 
 def _lin(rows, k, n):
@@ -50,7 +52,7 @@ def forward_flops(cfg: dict, q_tokens, prog_positions, nodes, edges,
     pp = np.asarray(prog_positions, np.float64)
     n = np.asarray(nodes, np.float64)
     e = np.asarray(edges, np.float64)
-    t, eng = cfg["transformer"], cfg["engine"]
+    t = cfg["transformer"]
     D, Fd, L = t["hidden_dim"], t["ffn_dim"], t["num_layers"]
     E_t, C = cfg["text"]["emb_dim"], cfg["scene"]["emb_dim"]
     V, A, M = cfg["text"]["vocab_size"], cfg["num_answers"], \
@@ -76,24 +78,8 @@ def forward_flops(cfg: dict, q_tokens, prog_positions, nodes, edges,
     total += (_lin(e, 3 * C, C) + _lin(e, C, C) + _lin(e, 2 * C, C)
               + _lin(e, C, C) + _lin(n, 2 * C, C) + _lin(n, C, C)).sum()
     # engine
-    if eng["kind"] in ("gat", "none"):
-        H, R = eng["heads"], eng["num_rounds"]
-        total += R * (_lin(n, C, H * C + 2 * H) + _lin(1, D, H * C + 2 * H)
-                      + _lin(e, C, H) + _lin(1, D, H)
-                      + 2.0 * e * H * C + 2.0 * n * H * C).sum()
-        node_dim = C
-    elif eng["kind"] == "lcgn":
-        H, I = eng["lcgn_heads"], eng["lcgn_iters"]
-        it = (_lin(1, D, D) + _lin(q, D, 1) + 2.0 * q * D          # command
-              + _lin(n, D, D)                                      # proj_x_ctx
-              + 3 * _lin(n, 3 * D, H * D) + 2 * _lin(1, D, H * D)  # the cell
-              + 2.0 * e * H * D + 2.0 * e * H * D                  # edges
-              + _lin(n, 2 * D, D))                                 # output
-        total += (I * it + _lin(n, C, D) + _lin(n, D, D) + _lin(1, D, D)
-                  + _lin(n, 2 * D, D)).sum()
-        node_dim = D
-    else:
-        raise ValueError(f"no count for engine {eng['kind']}")
+    ops, node_dim = engines.load(cfg["engine"]["kind"]).flops(cfg, n, e, q)
+    total += ops
     # pooling and classifier
     total += (_lin(n, node_dim, D) + _lin(n, D, D) + 2 * _lin(1, D, D)
               + _lin(n, D, D) + _lin(n, D, 1)

@@ -65,7 +65,8 @@ def reference_train(s, shapes: dict, steps, seed: int, device,
     from harness.train_cell import rank_seed
     set_exact_float32()
     cfg = s.cfg
-    params = common.reference_params(shapes, seed + 1, device)
+    params = common.reference_params(shapes, seed + 1, device,
+                                     s.cfg.model.engine.kind)
     start = {n: params[n].clone() for n in shapes}
     for n in shapes:
         params[n].requires_grad_(True)
@@ -177,7 +178,8 @@ def eval_numbers(s, shapes: dict, check: dict, seed: int, device,
                  precision: str = "f32") -> dict:
     """The widest gaps over the checked batches' served answers."""
     set_exact_float32()
-    params = common.reference_params(shapes, seed + 1, device)
+    params = common.reference_params(shapes, seed + 1, device,
+                                     s.cfg.model.engine.kind)
     ref = Reference(params, s.cfg_dict["model"], "f32")
     low = Reference(params, s.cfg_dict["model"], precision)
     out = dict(answer_logit_dist=0.0, answer_served_gap=0.0, answer_gap=0.0,

@@ -100,7 +100,7 @@ def build_model(cfg, seed: int, device):
     with torch.device(device):
         model = PipelineModel(cfg.model)
     shapes = leaf_shapes(model)
-    weights = make_weights(shapes, seed, device)
+    weights = make_weights(shapes, seed, device, cfg.model.engine.kind)
     missing, unexpected = model.load_state_dict(weights, strict=False)
     left = [k for k in missing if not k.endswith(
         ("running_mean", "running_var", "num_batches_tracked"))]
@@ -110,10 +110,11 @@ def build_model(cfg, seed: int, device):
     return model.eval(), weights
 
 
-def reference_params(shapes: dict, seed: int, device) -> dict:
+def reference_params(shapes: dict, seed: int, device,
+                     engine_kind: str) -> dict:
     """The same weights made again from the seed, with BatchNorm's initial
     running statistics: the reference's parameters."""
-    params = make_weights(shapes, seed, device)
+    params = make_weights(shapes, seed, device, engine_kind)
     params.update(batch_norm_stats(shapes, device))
     return params
 

@@ -20,6 +20,7 @@ import sys
 
 import torch
 
+import engines
 from harness import cell as cell_mod
 from harness import check as check_mod
 from harness import common
@@ -100,6 +101,8 @@ def measure(workload: str, seed: int, seconds: float, trace: bool, device,
     traffic = traffic_mod.load_traffic(wl["traffic"])
     if overrides is not None:
         cfg_file, traffic = overrides(cfg_file, traffic)
+    # a configuration whose engine has no file stops before set-up
+    engines.load(cfg_file["model"]["engine"]["kind"])
     if traffic.get("ranks", 1) > 1:
         from harness import dp_cell
         out, s = dp_cell.run(cfg_file, traffic, seed, seconds, trace, device,
@@ -130,9 +133,9 @@ def rank_rows(s, seed: int, n_data: int, rank: int, steps: int) -> list:
 
 def fill_counts(out, s, seed: int) -> None:
     """The operation count of the window's batches on every rank (all of
-    the window, and its host part) and the traced steps' GAT bytes."""
+    the window, and its host part) and the least bytes of the engine's
+    kernels over the traced steps."""
     from counts.flops import batch_flops
-    from counts.gat_bytes import backward_bytes, forward_bytes
     cfg = s.cfg
     train = out.mode == "train"
     model_cfg = s.cfg_dict["model"]
@@ -148,21 +151,12 @@ def fill_counts(out, s, seed: int) -> None:
         rank_rows(s, seed, n_data, r, out.steps) for r in range(1, n_data)]
     out.flops = sum(flops(b) for b in per_rank)
     out.host_flops = sum(flops(b[:out.host_steps]) for b in per_rank)
-    if out.trace_metas:
-        elem = 2 if cfg.model.dtype == "bfloat16" else 4
-        eng = cfg.model.engine
-        fwd = bwd = 0
-        if eng.kind in ("gat", "none"):
-            for m in out.trace_metas:
-                c = common.batch_counts(s.reader, rows(m), train, cfg)
-                args = (c["B"], c["npg"], c["epg"], eng.heads,
-                        cfg.model.scene.emb_dim, elem, c["n_src"],
-                        c["n_dst"], c["n_edges"])
-                fwd += eng.num_rounds * forward_bytes(*args,
-                                                      with_keep=train)
-                if train:
-                    bwd += eng.num_rounds * backward_bytes(*args)
-        out.gat_bytes = (fwd, bwd)
+    kernel_bytes = getattr(engines.load(model_cfg["engine"]["kind"]),
+                           "kernel_bytes", None)
+    if out.trace_metas and kernel_bytes is not None:
+        out.gat_bytes = kernel_bytes(model_cfg, [
+            common.batch_counts(s.reader, rows(m), train, cfg)
+            for m in out.trace_metas], train)
 
 
 def evaluate(out, s, wl, seed, device) -> tuple:

@@ -2,10 +2,10 @@
 the benchmark's input to the program and to the reference alike.
 
 Each leaf gets the published initialisation's scale: N(0, 1) for the
-embeddings and the decoder's query table; glorot-uniform for the GAT and
-LCGN-cell projections and the GAT attention vectors (their biases 0);
+embeddings and the decoder's query table; ones and zeros for the norms;
+the engine's own leaves by its file's ``init_rule`` (``engines/<kind>.py``);
 U(+-1/sqrt(fan_in)) for every other linear weight and bias, attention
-in-projections included; ones and zeros for the norms. All uniform leaves
+in-projections included. All uniform leaves
 come from one draw of U(-1, 1) and all normal ones from one draw of
 N(0, 1), each cut into leaves and scaled; BatchNorm running statistics
 start at 0 and 1.
@@ -16,8 +16,10 @@ import math
 
 import torch
 
+import engines
 
-def _rule(name: str, shape: tuple, shapes: dict):
+
+def _rule(name: str, shape: tuple, shapes: dict, engine):
     """('normal' | 'uniform', bound) or ('fill', value) for one leaf."""
     leaf = name.rsplit(".", 1)[-1]
     owner = name.rsplit(".", 1)[0]
@@ -25,17 +27,9 @@ def _rule(name: str, shape: tuple, shapes: dict):
         return "normal", 1.0
     if "norm" in owner or ".bns." in name:
         return "fill", 1.0 if leaf == "weight" else 0.0
-    if ".convs." in name and leaf in ("att_l", "att_r", "att_e"):
-        _, h, c = shape
-        return "uniform", math.sqrt(6.0 / (h + c))
-    glorot = (".convs." in name and leaf == "weight"
-              and owner.rsplit(".", 1)[-1] in ("lin_l", "lin_e")) or (
-        ".lcgn." in name and leaf == "weight")
-    if glorot:
-        fan_out, fan_in = shape
-        return "uniform", math.sqrt(6.0 / (fan_in + fan_out))
-    if (".convs." in name or ".lcgn." in name) and leaf == "bias":
-        return "fill", 0.0
+    own = engine.init_rule(name, shape)
+    if own is not None:
+        return own
     if leaf == "in_proj_weight":
         return "uniform", 1.0 / math.sqrt(shape[1])
     if leaf == "in_proj_bias":
@@ -47,11 +41,13 @@ def _rule(name: str, shape: tuple, shapes: dict):
     raise ValueError(f"no initialisation rule for {name}")
 
 
-def make_weights(shapes: dict, seed: int, device) -> dict:
+def make_weights(shapes: dict, seed: int, device, engine_kind: str) -> dict:
     """name -> float32 tensor on ``device`` for every leaf in ``shapes``
-    (name -> shape), from ``seed``."""
+    (name -> shape) of a model whose engine is ``engine_kind``, from
+    ``seed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    rules = {n: _rule(n, s, shapes) for n, s in shapes.items()}
+    engine = engines.load(engine_kind)
+    rules = {n: _rule(n, s, shapes, engine) for n, s in shapes.items()}
     size = {k: sum(math.prod(shapes[n]) for n, r in rules.items()
                    if r[0] == k) for k in ("uniform", "normal")}
     pools = {

@@ -1,5 +1,7 @@
-"""Plain PyTorch GraphVQA (GAT and LCGN engines) on the padded dense
-layout: the benchmark's reference for what the program computes.
+"""Plain PyTorch GraphVQA on the padded dense layout: the benchmark's
+reference for what the program computes. The engine between the encoders
+and the classifier is the configuration's ``engine.kind``, from its file
+``engines/<kind>.py``.
 
 Written from the published architecture (GraphVQA, Liang et al., NAACL 2021
 MAI workshop; reference code codexxxl/GraphVQA) in float32 with TF32 off,
@@ -20,16 +22,7 @@ which the program follows:
   * the program decoder's fine stage decodes the M instruction streams, the
     instruction vector standing at position 0 of each; in training the M
     streams of a question run as one sequence under a block-causal mask;
-  * a padding token embeds to zero; scene tokens are summed per node;
-  * GAT: a shared node projection gives the left and right scores and the
-    values, softmax over each destination's in-edges shifted by the
-    graph's largest logit per head (detached, and taken through
-    ``exp(min(x, 0))``, whose derivative at the maximum is 1/2), dropout
-    on the normalized attention, heads averaged plus a bias, a skip
-    connection, BatchNorm + ReLU + dropout between rounds;
-  * LCGN: four iterations of textual command, context-feature update and
-    message passing, in float32, with context features drawn from a
-    standard normal at every forward.
+  * a padding token embeds to zero; scene tokens are summed per node.
 
 Dropout draws come from the generator handed in, one ``torch.rand`` per
 dropout site of the shape the site's tensor has, in the order the model
@@ -41,6 +34,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+import engines
 
 NEG = -1e30
 EPS16 = 1e-16
@@ -89,11 +84,7 @@ class Reference:
         t = model_cfg["transformer"]
         self.D, self.heads = t["hidden_dim"], t["num_heads"]
         self.rate = t["dropout"]
-        e = model_cfg["engine"]
-        self.engine, self.rounds, self.gat_heads = (
-            e["kind"], e["num_rounds"], e["heads"])
-        self.engine_rate, self.slope = e["dropout"], e["negative_slope"]
-        self.iters = e["lcgn_iters"]
+        self.engine = engines.load(model_cfg["engine"]["kind"])
         self.M = model_cfg["max_execution_steps"]
         self.cls_rate = model_cfg["classifier_dropout"]
 
@@ -293,79 +284,6 @@ class Reference:
             + self.P[name + ".bias"]
         return self.act(out * nmask)
 
-    def gat(self, x, e, instr, b, gen, train):
-        B, npg, C = x.shape
-        H = self.gat_heads
-        nmask = b["node_mask"][..., None].float()
-        h = x
-        for i in range(self.rounds):
-            cv = f"gat_seq.convs.{i}"
-            ins = instr[:, i]
-            xw = self.lin(torch.cat([h, ins[:, None].expand(B, npg, -1)], -1),
-                          cv + ".lin_l", bias=False).reshape(B, npg, H, C)
-            ew = self.lin(torch.cat([e, ins[:, None].expand(B, e.shape[1],
-                                                            -1)], -1),
-                          cv + ".lin_e", bias=False).reshape(B, -1, H, C)
-            a_l = self.act((xw * self.P[cv + ".att_l"]).sum(-1))
-            a_r = self.act((xw * self.P[cv + ".att_r"]).sum(-1))
-            a_e = self.act((ew * self.P[cv + ".att_e"]).sum(-1))
-            keep = None
-            if gen is not None and self.engine_rate > 0.0:
-                keep = (torch.rand((B, e.shape[1], H), generator=gen,
-                                   device=x.device) >= self.engine_rate
-                        ).float() / (1.0 - self.engine_rate)
-            lg = F.leaky_relu(_gather(a_l, b["src"]) + _gather(a_r, b["dst"])
-                              + a_e, self.slope)
-            alpha = self.act(self.softmax_in_edges(lg, b, npg))
-            if keep is not None:
-                alpha = alpha * keep
-            xs = self.act(_gather(xw, b["src"]))
-            out = _scatter_sum(alpha[..., None] * xs, b["dst"], npg)
-            out = self.act((out.mean(2) + self.P[cv + ".bias"]) * nmask)
-            h = out + h
-            if i < self.rounds - 1:
-                h = torch.relu(self.batch_norm(h, f"gat_seq.bns.{i}", nmask,
-                                               train))
-                h = self.drop(h, self.engine_rate if gen is not None else 0.0,
-                              gen)
-        return h
-
-    def lcgn(self, x, memory, b, gen, ctx_gen):
-        n = "lcgn_seq"
-        B, npg, _ = x.shape
-        C = self.D
-        nmask = b["node_mask"][..., None].float()
-        rate = self.engine_rate if gen is not None else 0.0
-        x_loc = self.drop(self.lin(x, f"{n}.init_sg_emb_input.0"), rate, gen)
-        x_ctx = torch.randn(x_loc.shape, generator=ctx_gen,
-                            device=x_loc.device)
-        q_emb = torch.relu(self.lin(memory[:, 0], f"{n}.qInput1"))
-        proj_loc = self.lin(self.drop(x_loc, rate, gen), f"{n}.proj_x_loc.1")
-        for t in range(self.iters):
-            q_cmd = self.lin(q_emb, f"{n}.qInput2_{t}")
-            raw = self.lin(q_cmd[:, None] * memory, f"{n}.cmd_inter2logits")
-            att = torch.softmax(raw[..., 0], -1)
-            cmd = torch.einsum("bl,bld->bd", att, memory)
-            proj_ctx = self.lin(self.drop(x_ctx, rate, gen),
-                                f"{n}.proj_x_ctx.1")
-            joint = torch.cat([x_loc, x_ctx, proj_ctx * proj_loc], -1)
-            cell = f"{n}.lcgn"
-            x_l = self.lin(joint, cell + ".lin_l", bias=False)
-            x_r = self.lin(joint, cell + ".lin_r", bias=False)
-            p_cmd = self.lin(cmd, cell + ".proj_cmd", bias=False)[:, None]
-            c_cmd = self.lin(cmd, cell + ".cal_cmd", bias=False)[:, None]
-            x_mul = p_cmd * x_r
-            lg = (_gather(x_l, b["src"]) * _gather(x_mul, b["dst"])).sum(
-                -1, keepdim=True)
-            alpha = self.softmax_in_edges(F.leaky_relu(lg, self.slope), b,
-                                          npg)
-            alpha = self.drop(alpha, rate, gen)
-            val = self.lin(joint, cell + ".cal_x", bias=False) * c_cmd
-            msg = _scatter_sum(alpha * _gather(val, b["src"]), b["dst"], npg)
-            msg = (msg + self.P[cell + ".bias"]) * nmask
-            x_ctx = self.lin(torch.cat([x_ctx, msg], -1), f"{n}.output_layer")
-        return self.lin(torch.cat([x_loc, x_ctx], -1), f"{n}.fin_layer") * nmask
-
     def classify(self, h, memory, b, gen):
         q = memory[:, 0]
         nmask = b["node_mask"][..., None]
@@ -384,11 +302,6 @@ class Reference:
                         gen)
         return self.lin(hid, "logit_fc.4")
 
-    def engine_out(self, x, e, memory, instr, b, gen, ctx_gen, train):
-        if self.engine == "lcgn":
-            return self.lcgn(x, memory, b, gen, ctx_gen)
-        return self.gat(x, e, instr, b, gen, train)
-
     def train_loss(self, b, gen, ctx_gen, program_loss: bool):
         """The teacher-forced forward and the loss of one train step."""
         x, e = self.scene_encoder(b)
@@ -396,7 +309,8 @@ class Reference:
         instr = self.instructions(memory, gen)
         prog = self.program_logits(memory, instr, b["programs"][:, :-1], gen,
                                    packed=True)
-        h = self.engine_out(x, e, memory, instr, b, gen, ctx_gen, True)
+        h = self.engine.forward(self, x, e, memory, instr, b, gen, ctx_gen,
+                                True)
         logits = self.classify(h, memory, b, gen)
         n = b.get("rows", logits.shape[0])   # fewer rows: a planted fault
         loss = F.cross_entropy(logits[:n], b["labels"][:n])
@@ -416,7 +330,8 @@ class Reference:
         x, e = self.scene_encoder(b)
         memory = self.question_encoder(b["questions"], None)
         instr = self.instructions(memory, None)
-        h = self.engine_out(x, e, memory, instr, b, None, ctx_gen, False)
+        h = self.engine.forward(self, x, e, memory, instr, b, None, ctx_gen,
+                                False)
         sa = self.classify(h, memory, b, None)
         prog = self.program_logits(memory, instr, program_tokens[:, :-1],
                                    None, packed=False)

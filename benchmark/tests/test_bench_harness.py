@@ -163,7 +163,8 @@ def test_banned_modules_compare_top_level_names_whole(monkeypatch):
 
 def test_the_reference_imports_nothing_of_the_program():
     import ast
-    for path in (cell.ROOT / "reference").glob("*.py"):
+    for path in [*(cell.ROOT / "reference").glob("*.py"),
+                 *(cell.ROOT / "engines").glob("*.py")]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]
                      if isinstance(node, ast.Import) else
@@ -237,3 +238,40 @@ print(json.dumps(res))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["correct"] and "train_qa_per_s" in res["metrics"]
     assert math.isfinite(res["metrics"]["setup_s"]["value"])
+
+
+def test_an_engine_is_found_by_its_file(tmp_path, tiny):
+    """In a copy of the benchmark without ``engines/lcgn.py`` the lcgn cell
+    stops before set-up, naming the file to add; with the file back the
+    same copy runs correct."""
+    copy = tmp_path / "checkout"
+    shutil.copytree(cell.ROOT, copy / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(cell.MANIFEST, copy / "BENCHMARK.json")
+    engine = copy / "benchmark" / "engines" / "lcgn.py"
+    kept = engine.read_text()
+    engine.unlink()
+    code = f"""
+import sys, time, json, torch
+sys.path.insert(0, {str(copy / 'benchmark' / 'tests')!r})
+sys.path.append({str(cell.CHECKOUT)!r})
+from conftest import shrink
+from harness import main
+res = main.result("lcgn.train.gqa_b200", 4, 1.0, False, torch.device("cpu"),
+                  time.perf_counter(), overrides=shrink)
+print(json.dumps(res))
+"""
+
+    def run():
+        return subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(__import__("os").environ,
+                                       TMPDIR=str(tmp_path)))
+    out = run()
+    assert out.returncode != 0
+    assert "add benchmark/engines/lcgn.py" in out.stderr, out.stderr[-3000:]
+    assert "set-up:" not in out.stderr
+    engine.write_text(kept)
+    out = run()
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1])["correct"]
