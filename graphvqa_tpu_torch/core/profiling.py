@@ -43,9 +43,11 @@ from torch.profiler import record_function
 
 # the device segments, in step order: the model's modules (forward and
 # greedy sample), the loss and backward, Adam with the step's metrics, and
-# the data-parallel step's all-reduce
-SEGMENTS = ("encoders", "program_decoder", "engine", "classifier",
-            "full_answer_decoder", "loss_backward", "optimizer", "allreduce")
+# the data-parallel step's all-reduce; ``engine_messages`` is the part of
+# ``engine`` that builds and sums the edge messages (GINE's rounds stamp it)
+SEGMENTS = ("encoders", "program_decoder", "engine", "engine_messages",
+            "classifier", "full_answer_decoder", "loss_backward", "optimizer",
+            "allreduce")
 _INDEX = {name: k for k, name in enumerate(SEGMENTS)}
 _SOURCE = (pathlib.Path(__file__).resolve().parents[1] / "csrc"
            / "segment_stamp.cu")

@@ -46,6 +46,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from graphvqa_tpu_torch.core import profiling
 from graphvqa_tpu_torch.core.graph import GraphBatch
 from graphvqa_tpu_torch.nn.norm import MaskedBatchNorm
 from graphvqa_tpu_torch.nn.transformer import (
@@ -369,19 +370,31 @@ class GINEConv(nn.Module):
         self.nn = MLP2(in_features, channels, channels, dtype)
         self.register_buffer("eps", torch.zeros(1))
 
-    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata,
+                              strict, missing_keys, unexpected_keys,
+                              error_msgs):
         eps = state_dict.get(prefix + "eps")
         if eps is not None and bool((eps != 0).any()):
             raise ValueError(
                 f"{prefix}eps is nonzero ({eps.tolist()}); GINESeq implements "
                 f"the reference default train_eps=False/eps=0 only")
-        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+        super()._load_from_state_dict(state_dict, prefix, local_metadata,
+                                      strict, missing_keys, unexpected_keys,
+                                      error_msgs)
+        # a state dict of parameters alone leaves eps at its only value, 0
+        if eps is None and prefix + "eps" in missing_keys:
+            missing_keys.remove(prefix + "eps")
 
 
 class GINESeq(nn.Module):
     """Instruction-conditioned GINE rounds (JAX ``GINESeq``): messages
     ``relu([h ; ins][src] + [edge ; ins])`` summed per destination, update
-    ``MLP([h ; ins] + aggr)`` (eps = 0)."""
+    ``MLP([h ; ins] + aggr)`` (eps = 0).
+
+    With the program's tracing on, each round stamps ``engine`` before its
+    messages and ``engine_messages`` after their sum, so the device segment
+    ``engine_messages`` holds the rows gathered, added, rectified and summed
+    and ``engine`` the MLPs and BatchNorms."""
 
     def __init__(self, channels: int, ins_dim: int, num_rounds: int = 5,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0):
@@ -395,13 +408,16 @@ class GINESeq(nn.Module):
     def forward(self, graph: GraphBatch, x, edge_attr, instr_vectors,
                 generator=None, use_running_average=True):
         """x [N, C], edge_attr [E, C], instr_vectors [R, B, ins_dim] -> h."""
-        h = x
+        h, dev = x, x.device
         for i, conv in enumerate(self.convs):
+            profiling.stamp("engine", dev)
             ins = instr_vectors[i]
             x_cat = torch.cat([h, graph_to_nodes(graph, ins)], dim=-1)
             edge_cat = torch.cat([edge_attr, graph_to_edges(graph, ins)], dim=-1)
             msgs = torch.relu(gather_src(graph, x_cat) + edge_cat)
-            h = conv.nn(x_cat + aggregate_edge_values(graph, msgs))
+            aggr = aggregate_edge_values(graph, msgs)
+            profiling.stamp("engine_messages", dev)
+            h = conv.nn(x_cat + aggr)
             h = torch.where(graph.node_mask[:, None], h, 0.0)
             h = _between_rounds(self, i, h, graph, generator,
                                 use_running_average)
