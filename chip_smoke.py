@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero:
-  1. build    nvcc builds csrc/gat_round.cu, csrc/gat_round_backward.cu and
-              csrc/layer_norm.cu for sm_90a (first use, one nvcc per
-              source, in parallel)
+  1. build    nvcc builds csrc/gat_round.cu, csrc/gat_round_backward.cu,
+              csrc/layer_norm.cu, csrc/gine_messages.cu and
+              csrc/gine_messages_backward.cu for sm_90a (first use, one
+              nvcc per source, in parallel)
   2. kernel   the GAT-round kernel against its plain PyTorch version at the
               main path's shapes (B=512, npg=64, epg=256, H=4, C=300) on
               GQA-shaped random graphs: both softmax shifts, with and without
@@ -166,6 +167,18 @@ Phases, in order; any failure exits non-zero:
               time and F.layer_norm's. Every phase above that runs a model
               holds its LayerNorm launches, counted on the card, to
               step_launches
+ 16. gine     the GINE round's kernel pair (ops/gine_messages.py) at the
+              gine cell's shape (B=200, npg=64, epg=256, C=300, D=512) on
+              GQA-shaped random graphs, in bf16, in the bf16 model's first
+              round's dtypes (h float32) and in float32: forward and
+              backward against the plain versions on the card (the ins
+              half and d_edge_attr bit for bit), two runs bit for bit, one
+              launch each counted on the card; then each kernel's device
+              time (cold L2) beside its least-bytes bound, the plain
+              versions' and the composite's (CUDA events). Every phase
+              above that runs a model holds the pair's launches to
+              step_launches: 5 a gine eval request, 5 + 5 a gine train
+              step, 0 on every other family
 
 Each phase's seconds print as "[seconds] phase N".
 
@@ -710,20 +723,31 @@ def layer_norm_launches(cfg):
             enc + dec + steps * dec)
 
 
+def gine_rounds(cfg):
+    """GINE-kernel launches per step (forward, or backward) of a config:
+    one per round on gine's dense batches, none on the other engines."""
+    e = cfg.model.engine
+    return e.num_rounds if e.kind == "gine" else 0
+
+
 def step_launches(cfg, train):
-    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward)
-    launches of one train step (``train``) or eval request of a config."""
-    rounds = gat_rounds(cfg)
+    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward,
+    gine_messages, gine_messages_backward) launches of one train step
+    (``train``) or eval request of a config on a dense batch."""
+    rounds, gine = gat_rounds(cfg), gine_rounds(cfg)
     fwd, bwd, ev = layer_norm_launches(cfg)
-    return (rounds, rounds, fwd, bwd) if train else (rounds, 0, ev, 0)
+    return ((rounds, rounds, fwd, bwd, gine, gine) if train
+            else (rounds, 0, ev, 0, gine, 0))
 
 
 def launch_counts():
-    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward)
-    launches since the last reset_launch_counts(), as the kernels counted
-    them on the card (CUDA graph replays too)."""
-    from graphvqa_tpu_torch.ops import gat_round, row_layer_norm
-    return gat_round.launch_counts() + row_layer_norm.launch_counts()
+    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward,
+    gine_messages, gine_messages_backward) launches since the last
+    reset_launch_counts(), as the kernels counted them on the card (CUDA
+    graph replays too)."""
+    from graphvqa_tpu_torch.ops import gat_round, gine_messages, row_layer_norm
+    return (gat_round.launch_counts() + row_layer_norm.launch_counts()
+            + gine_messages.launch_counts())
 
 
 def reset_launch_counts():
@@ -733,16 +757,18 @@ def reset_launch_counts():
 
 def launch_text(launches):
     return ("gat_round {}, gat_round_backward {}, layer_norm {}, "
-            "layer_norm_backward {}".format(*launches))
+            "layer_norm_backward {}, gine_messages {}, "
+            "gine_messages_backward {}".format(*launches))
 
 
 def cli_launches(text, what):
-    """The four counts of the CLI's last 'kernel launches (``what``)'
+    """The six counts of the CLI's last 'kernel launches (``what``)'
     line."""
     return tuple(int(v) for v in _last_match(
         rf"kernel launches \({re.escape(what)}\): gat_round (\d+), "
         r"gat_round_backward (\d+), layer_norm (\d+), "
-        r"layer_norm_backward (\d+)", text, f"{what} launches"))
+        r"layer_norm_backward (\d+), gine_messages (\d+), "
+        r"gine_messages_backward (\d+)", text, f"{what} launches"))
 
 
 def phase_serve(cfg, dev, model, tag="serve", ctx=None, relative=False):
@@ -1331,7 +1357,7 @@ def phase_cli(cfg, dev, data):
     kernel_steps = steps - layouts["flat_fallback"]
     ln_fwd, ln_bwd, ln_eval = layer_norm_launches(cfg)
     if tr != (rounds * kernel_steps, rounds * kernel_steps, ln_fwd * steps,
-              ln_bwd * steps):
+              ln_bwd * steps, 0, 0):
         fail(f"CLI epoch: {launch_text(tr)} launches for {steps} steps, "
              f"{kernel_steps} dense, expected gat_round and "
              f"gat_round_backward {rounds} each per dense step, layer_norm "
@@ -1349,7 +1375,7 @@ def phase_cli(cfg, dev, data):
                             train_out, "validation summary"))
     val = cli_launches(train_out, "validate epoch 0")
     batches = -(-val_q // B)
-    if val != (rounds * batches, 0, ln_eval * batches, 0):
+    if val != (rounds * batches, 0, ln_eval * batches, 0, 0, 0):
         fail(f"CLI validation: {launch_text(val)} launches for {val_q} "
              f"questions")
     if not (out / "ckpt" / "ckpt_0.pt").exists():
@@ -1366,7 +1392,7 @@ def phase_cli(cfg, dev, data):
     eval_qa_s, eval_q = float(ev[-1][0]), int(ev[-1][1])
     ev = cli_launches(eval_out, "evaluate val_balanced")
     batches = -(-eval_q // B)
-    if ev != (rounds * batches, 0, ln_eval * batches, 0):
+    if ev != (rounds * batches, 0, ln_eval * batches, 0, 0, 0):
         fail(f"CLI evaluate: {launch_text(ev)} launches for {eval_q} "
              f"questions")
     dump = json.loads((out / "dump_results.json").read_text())
@@ -1511,7 +1537,9 @@ def phase_families(dev, data):
         launches[name] = dict(forward=serve[0] + train[0],
                               backward=train[1],
                               layer_norm=serve[2] + train[2],
-                              layer_norm_backward=train[3])
+                              layer_norm_backward=train[3],
+                              gine_messages=serve[4] + train[4],
+                              gine_messages_backward=train[5])
         log(f"[{tag}] launches: serve {launch_text(serve)} (3 requests), "
             f"train {launch_text(train)} (3 steps); "
             f"{time.perf_counter() - t0:.1f}s")
@@ -1539,7 +1567,7 @@ def phase_cli_lcgn(data):
         fail(f"lcgn CLI: training losses {losses}")
     tr = cli_launches(stdout, "train epoch 0")
     ln_fwd, ln_bwd, _ = layer_norm_launches(family_config("lcgn"))
-    if tr != (0, 0, ln_fwd * 2, ln_bwd * 2):
+    if tr != (0, 0, ln_fwd * 2, ln_bwd * 2, 0, 0):
         fail(f"lcgn CLI: {launch_text(tr)} launches in 2 steps, expected "
              f"no GAT kernel, layer_norm {ln_fwd} and layer_norm_backward "
              f"{ln_bwd} per step")
@@ -2712,7 +2740,7 @@ def _timing_line(tag, runs, cfg):
     one."""
     per_step = step_launches(cfg, train=True)
     per_request = step_launches(cfg, train=False)
-    total = [0, 0, 0, 0]
+    total = [0] * 6
     for r, rec in enumerate(runs):
         eager = rec["reduce_calls"][0]
         modes = ([("captured", rec["captured"])] if "captured" in rec
@@ -3005,7 +3033,7 @@ def phase_cli_dist(data):
     from graphvqa_tpu_torch.config import gat_config
     t0 = time.perf_counter()
     root = data["data"]
-    launches = [0, 0, 0, 0]
+    launches = [0] * 6
     ln_fwd, ln_bwd, _ = layer_norm_launches(gat_config())
     for tag, nproc, bsz, epochs, extra in (
             ("nccl", 1, B, 1, []),
@@ -3024,7 +3052,7 @@ def phase_cli_dist(data):
             "--fast-validate", "1"], f"cli_{tag}_train")
         tr = cli_launches(train_out, "train epoch 0")
         steps = 1024 // (bsz * data_ranks)
-        if tr[2:] != (ln_fwd * steps, ln_bwd * steps):
+        if tr[2:4] != (ln_fwd * steps, ln_bwd * steps):
             fail(f"CLI {tag}: {launch_text(tr)} launches in epoch 0 of "
                  f"{steps} steps, expected layer_norm {ln_fwd} and "
                  f"layer_norm_backward {ln_bwd} per step")
@@ -3281,12 +3309,12 @@ def phase_layer_norm(dev):
             for fn in (rln.layer_norm, rln.layer_norm_reference):
                 xx, ww, bb = (t.detach().clone().requires_grad_()
                               for t in (x, w, b))
-                before = launch_counts()[2:]
+                before = launch_counts()[2:4]
                 y = fn(xx, ww, bb, LN_EPS, bf16)
                 y.backward(dy)
                 torch.cuda.synchronize()
                 runs.append((y.detach(), (xx.grad, ww.grad, bb.grad),
-                             tuple(n - m for n, m in zip(launch_counts()[2:],
+                             tuple(n - m for n, m in zip(launch_counts()[2:4],
                                                          before))))
             (y, grads, counted), (y_ref, grads_ref, _) = runs
             if counted != (1, 1):
@@ -3413,6 +3441,179 @@ def layer_norm_summary(kind, phase, serve, train, cli, families, multi,
                            for r in LN_ROWS}}
 
 
+GINE_B, GINE_C, GINE_D = 200, 300, 512
+# (h, edge_attr, ins) dtypes of the GINE phase: the bf16 model's rounds
+# after the first, its first round (the scene encoder's float32 h), and the
+# float32 configurations
+GINE_DTYPES = {"bfloat16": ("bfloat16",) * 3,
+               "first_round": ("float32", "bfloat16", "bfloat16"),
+               "float32": ("float32",) * 3}
+
+
+def gine_least_bytes(g, h, ins, edge_attr, backward):
+    """The fewest bytes a GINE-pair call moves: the indices and mask read
+    once; forward, every h row (z holds each row's own), the real edge
+    rows and ins read, z written; backward, dz and ins read, the h rows
+    that are some real edge's source and the real edge rows read, dh,
+    every d_edge_attr row and d_ins written."""
+    import torch
+    real = g.edge_mask
+    n_real = int(real.sum())
+    N, C = h.shape
+    B, D = ins.shape
+    eh, ee, em = h.element_size(), edge_attr.element_size(), ins.element_size()
+    idx = g.edges_pad * 9
+    if not backward:
+        return idx + N * C * eh + n_real * C * ee + B * D * em + N * (
+            C + D) * em
+    sources = int(torch.unique(g.edge_src[real]).numel())
+    return (idx + N * (C + D) * em + sources * C * eh + n_real * C * ee
+            + 2 * B * D * em + N * C * eh + g.edges_pad * C * ee)
+
+
+def _gine_readings(got, want):
+    """The worst error of each output against the plain version's: 0 for
+    bit for bit; bf16 outputs as a share of 2^-7 of the tensor's largest
+    |value| (two bf16 ulps: the f32 sums' order differs, then one rounding
+    of the sum and one of z or dh), float32 ones as a share of TOL's."""
+    import torch
+    out = []
+    for a, b in zip(got, want):
+        diff = float((a.float() - b.float()).abs().max())
+        if a.dtype == torch.bfloat16:
+            lim = 2.0 ** -7 * float(b.float().abs().max())
+        else:
+            atol, rtol = TOL["float32"]
+            lim = atol + rtol * float(b.float().abs().max())
+        out.append(diff / lim)
+    return out
+
+
+def phase_gine(dev):
+    """Phase 16: the GINE round's kernel pair against its plain versions
+    (gine_messages_reference, gine_messages_backward_reference, run on the
+    card) at the gine cell's shape in each of GINE_DTYPES: z's ins half
+    and d_edge_attr bit for bit, the rest within _gine_readings' limits,
+    two runs of each kernel bit for bit, one launch of each counted on the
+    card a call; then each kernel's cold-L2 device time beside its
+    least-bytes bound, the plain versions' and the composite's CUDA-event
+    times (the composite: nn/gnn.py:GINESeq's concatenations, gather, ReLU
+    and sum off the dense path, and autograd's backward through them)."""
+    import torch
+    from graphvqa_tpu_torch.core.packing import pack_graphs_dense
+    from graphvqa_tpu_torch.nn.gnn import (
+        gather_src, graph_to_edges, graph_to_nodes)
+    from graphvqa_tpu_torch.ops import dense
+    from graphvqa_tpu_torch.ops import gine_messages as gm
+    from graphvqa_tpu_torch.ops.dispatch import aggregate_edge_values
+    g = pack_graphs_dense(gqa_samples(GINE_B, seed=16), NPG, EPG).to(dev)
+    dl, sl = dense.dense_local_indices(g)
+    mask = g.edge_mask.reshape(dl.shape)
+    C = GINE_C
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            getattr(torch, dtype))
+
+    def composite(h, ins, edge_attr):
+        x_cat = torch.cat([h, graph_to_nodes(g, ins)], dim=-1)
+        edge_cat = torch.cat([edge_attr, graph_to_edges(g, ins)], dim=-1)
+        msgs = torch.relu(gather_src(g, x_cat) + edge_cat)
+        return x_cat + aggregate_edge_values(g, msgs)
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    readings, timing = {}, {}
+    for name, (th, te, ti) in GINE_DTYPES.items():
+        h = randn(g.nodes_pad, C, dtype=th)
+        edge_attr = randn(g.edges_pad, C, dtype=te)
+        ins = randn(GINE_B, GINE_D, dtype=ti)
+        ins = ins.to(gm.messages_dtype(h, ins, edge_attr))
+        dz = randn(g.nodes_pad, C + GINE_D, dtype=str(ins.dtype)[6:])
+        args = (h, ins, edge_attr, dl, sl, mask)
+        f0 = gm.launch_counts()
+        z = gm.gine_messages(*args, npg=NPG)
+        z_again = gm.gine_messages(*args, npg=NPG)
+        grads = gm.gine_messages_backward(dz, *args, npg=NPG)
+        grads_again = gm.gine_messages_backward(dz, *args, npg=NPG)
+        torch.cuda.synchronize()
+        counted = tuple(n - m for n, m in zip(gm.launch_counts(), f0))
+        if counted != (2, 2):
+            fail(f"gine {name}: two calls of each kernel counted {counted}")
+        if not (torch.equal(z, z_again) and all(
+                torch.equal(a, b) for a, b in zip(grads, grads_again))):
+            fail(f"gine {name}: two runs differ")
+        z_ref = gm.gine_messages_reference(*args, npg=NPG)
+        grads_ref = gm.gine_messages_backward_reference(dz, *args, npg=NPG)
+        if not torch.equal(z[:, C:], z_ref[:, C:]):
+            fail(f"gine {name}: z's ins half is not the plain version's")
+        if not torch.equal(grads[1], grads_ref[1]):
+            fail(f"gine {name}: d_edge_attr is not the plain version's")
+        read = dict(zip(("z", "dh", "d_ins"), _gine_readings(
+            (z, grads[0], grads[2]), (z_ref, grads_ref[0], grads_ref[2]))))
+        if max(read.values()) > 1.0:
+            fail(f"gine {name}: errors {read} of their limits")
+        readings[name] = read
+        fwd = lambda: gm.gine_messages(*args, npg=NPG)  # noqa: E731
+        bwd = lambda: gm.gine_messages_backward(  # noqa: E731
+            dz, *args, npg=NPG)
+        leaves = [t.clone().requires_grad_() for t in (h, ins, edge_attr)]
+        z_comp = composite(*leaves)
+        plain = dict(
+            forward=cuda_median_ms(
+                lambda: gm.gine_messages_reference(*args, npg=NPG)),
+            backward=cuda_median_ms(
+                lambda: gm.gine_messages_backward_reference(
+                    dz, *args, npg=NPG)))
+        with torch.no_grad():
+            comp = dict(forward=cuda_median_ms(lambda: composite(
+                h, ins, edge_attr)))
+        comp["backward"] = cuda_median_ms(lambda: torch.autograd.grad(
+            z_comp, leaves, dz, retain_graph=True))
+        for kind, fn in (("forward", fwd), ("backward", bwd)):
+            ms = call_ms(fn, flush)
+            if ms is None:
+                fail(f"torch.profiler recorded no gine {kind} call")
+            nbytes = gine_least_bytes(g, h, ins, edge_attr,
+                                      kind == "backward")
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            timing[(kind, name)] = dict(
+                ms=ms, bound_ms=bound, plain_ms=plain[kind],
+                composite_ms=comp[kind], bound_by="bytes")
+            log(f"[gine] {kind:8s} {name}: device {ms * 1e3:.2f}us cold-L2 "
+                f"({100 * bound / ms:.1f}% of bound {bound * 1e3:.2f}us, "
+                f"{nbytes / 1e6:.2f} MB); wrapper host "
+                f"{host_us_per_call(fn):.2f}us/call; plain "
+                f"{plain[kind] * 1e3:.1f}us, composite "
+                f"{comp[kind] * 1e3:.1f}us (events)")
+        log(f"[gine] {name}: {int(g.edge_mask.sum())} real edges of "
+            f"{g.edges_pad}; errors z {read['z']:.3f}, dh {read['dh']:.3f}, "
+            f"d_ins {read['d_ins']:.3f} of their limits, the ins half and "
+            f"d_edge_attr bit for bit, two runs bit for bit")
+    return dict(readings=readings, timing=timing)
+
+
+def gine_summary(kind, phase, families):
+    """The kernels line's entry of the GINE forward or backward: its
+    launches in phase 12's gine steps (3 requests and 3 train steps),
+    phase 16's worst readings and its bf16 time."""
+    name = "gine_messages" + ("" if kind == "forward" else "_backward")
+    main = phase["timing"][(kind, "bfloat16")]
+    return {"name": name, "route": "cuda",
+            "source": f"graphvqa_tpu_torch/csrc/{name}.cu",
+            "replaces": "none: the JAX package's GINESeq is XLA ops "
+                        "(graphvqa_tpu/nn/gnn.py:439)",
+            "launches": families["gine"][name],
+            "max_err_share_of_limit": {
+                n: max(r.values()) for n, r in phase["readings"].items()},
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "composite_ms": main["composite_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "ms_by_dtypes": {n: phase["timing"][(kind, n)]["ms"]
+                             for n in GINE_DTYPES}}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -3486,6 +3687,8 @@ def main() -> None:
     done("14 graphs")
     layer_norm = phase_layer_norm(dev)
     done("15 layer-norm")
+    gine = phase_gine(dev)
+    done("16 gine")
 
     card = card_line()
     fwd = kernel[("bfloat16", "graph", True)]
@@ -3533,6 +3736,8 @@ def main() -> None:
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": None}] + [layer_norm_summary(
             kind, layer_norm, serve, train, cli, families, multi, graphs)
+            for kind in ("forward", "backward")] + [
+            gine_summary(kind, gine, families)
             for kind in ("forward", "backward")]}
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

@@ -297,11 +297,12 @@ def build_config(args, text_vocab_size: int, sg_vocab_size: int):
 
 
 def _launches():
-    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward)
-    kernel launches so far, as the kernels counted them on the card
-    (replays of the step graphs too)."""
-    from graphvqa_tpu_torch.ops import gat_round, row_layer_norm
-    return gat_round.launch_counts() + row_layer_norm.launch_counts()
+    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward,
+    gine_messages, gine_messages_backward) kernel launches so far, as the
+    kernels counted them on the card (replays of the step graphs too)."""
+    from graphvqa_tpu_torch.ops import gat_round, gine_messages, row_layer_norm
+    return (gat_round.launch_counts() + row_layer_norm.launch_counts()
+            + gine_messages.launch_counts())
 
 
 def _print_graphs(what, step, mesh) -> None:
@@ -327,7 +328,9 @@ def _print_launches(what, before):
     print(f"kernel launches ({what}): gat_round {now[0] - before[0]}, "
           f"gat_round_backward {now[1] - before[1]}, "
           f"layer_norm {now[2] - before[2]}, "
-          f"layer_norm_backward {now[3] - before[3]}")
+          f"layer_norm_backward {now[3] - before[3]}, "
+          f"gine_messages {now[4] - before[4]}, "
+          f"gine_messages_backward {now[5] - before[5]}")
 
 
 def _print_segments(what) -> None:

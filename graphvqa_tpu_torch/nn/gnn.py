@@ -54,6 +54,7 @@ from graphvqa_tpu_torch.nn.transformer import (
 from graphvqa_tpu_torch.ops import dense
 from graphvqa_tpu_torch.ops.dispatch import aggregate_edge_values
 from graphvqa_tpu_torch.ops.gat_round import gat_round, graph_logit_max
+from graphvqa_tpu_torch.ops.gine_messages import gine_messages
 from graphvqa_tpu_torch.parallel.collectives import assemble_rows, pmax
 from graphvqa_tpu_torch.ops.segment import (
     gather_nodes, scatter_edges_to_nodes, segment_softmax, segment_sum)
@@ -391,6 +392,12 @@ class GINESeq(nn.Module):
     ``relu([h ; ins][src] + [edge ; ins])`` summed per destination, update
     ``MLP([h ; ins] + aggr)`` (eps = 0).
 
+    On the dense layout without edge sharding a round's ``[h ; ins] + aggr``
+    is ``ops/gine_messages.py:gine_messages``: the kernel pair on the card,
+    its plain twin on the CPU, neither building a message row. The flat
+    layout and an edge-sharded batch (whose sum ends in the edge group's
+    all-reduce) take the composite of gathers and ``index_add_``.
+
     With the program's tracing on, each round stamps ``engine`` before its
     messages and ``engine_messages`` after their sum, so the device segment
     ``engine_messages`` holds the rows gathered, added, rectified and summed
@@ -409,15 +416,24 @@ class GINESeq(nn.Module):
                 generator=None, use_running_average=True):
         """x [N, C], edge_attr [E, C], instr_vectors [R, B, ins_dim] -> h."""
         h, dev = x, x.device
+        fused = graph.has_dense_layout and graph.edge_group is None
+        if fused:
+            dl, sl = dense.dense_local_indices(graph)
+            mask = graph.edge_mask.reshape(dl.shape)
         for i, conv in enumerate(self.convs):
             profiling.stamp("engine", dev)
             ins = instr_vectors[i]
-            x_cat = torch.cat([h, graph_to_nodes(graph, ins)], dim=-1)
-            edge_cat = torch.cat([edge_attr, graph_to_edges(graph, ins)], dim=-1)
-            msgs = torch.relu(gather_src(graph, x_cat) + edge_cat)
-            aggr = aggregate_edge_values(graph, msgs)
+            if fused:
+                z = gine_messages(h, ins, edge_attr, dl, sl, mask,
+                                  npg=graph.nodes_per_graph)
+            else:
+                x_cat = torch.cat([h, graph_to_nodes(graph, ins)], dim=-1)
+                edge_cat = torch.cat([edge_attr, graph_to_edges(graph, ins)],
+                                     dim=-1)
+                msgs = torch.relu(gather_src(graph, x_cat) + edge_cat)
+                z = x_cat + aggregate_edge_values(graph, msgs)
             profiling.stamp("engine_messages", dev)
-            h = conv.nn(x_cat + aggr)
+            h = conv.nn(z)
             h = torch.where(graph.node_mask[:, None], h, 0.0)
             h = _between_rounds(self, i, h, graph, generator,
                                 use_running_average)

@@ -2,9 +2,10 @@
 current stream, and the launch counts the kernels keep on the card.
 
 Each ``csrc/*.cu`` source builds with nvcc for sm_90a into a shared library
-of its own under ``build/graphvqa_tpu_torch/``, cached by the source's
-content and the flags, and is bound with ctypes by the op module that
-launches it. :func:`kernel_libraries` builds the model's kernel sources
+of its own under ``build/graphvqa_tpu_torch/``, cached by the content of
+the source and of the ``csrc/`` headers it includes and by the flags, and
+is bound with ctypes by the op module that launches it.
+:func:`kernel_libraries` builds the model's kernel sources
 (:data:`KERNEL_SOURCES`) at their first use, one nvcc each, all started
 together, so a first step waits for the slowest build, not for their sum.
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +32,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 # the kernels the model runs, by name (a library each, built together)
 KERNEL_SOURCES = {name: CSRC / f"{name}.cu"
                   for name in ("gat_round", "gat_round_backward",
-                               "layer_norm")}
+                               "layer_norm", "gine_messages",
+                               "gine_messages_backward")}
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
               / "build" / "graphvqa_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -66,15 +69,24 @@ def nvcc() -> str:
                        "the port's kernels (csrc/)")
 
 
+def _source_bytes(src: pathlib.Path) -> bytes:
+    """The source's bytes and those of each header it includes by a quoted
+    name from its own directory."""
+    text = src.read_bytes()
+    for name in re.findall(rb'#include "([^"]+)"', text):
+        text += (src.parent / name.decode()).read_bytes()
+    return text
+
+
 def build_sources(sources: dict) -> Built:
     """nvcc on each ``{name: source}`` into a shared library of its own
-    under ``build/graphvqa_tpu_torch/`` (cached by the source's content and
-    the flags; the builds run in parallel)."""
+    under ``build/graphvqa_tpu_torch/`` (cached by the content of the source
+    and its headers and by the flags; the builds run in parallel)."""
     paths, jobs, logs = {}, {}, []
     t0 = time.perf_counter()
     for key, src in sources.items():
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(_source_bytes(src) + " ".join(
+            NVCC_FLAGS).encode()).hexdigest()[:16]
         out = paths[key] = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
         if out.exists():
             logs.append(f"{src.name}: cached build")

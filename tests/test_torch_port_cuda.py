@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (the GAT round and the Transformer stacks'
-LayerNorm, forward and backward) against their plain PyTorch twins, on the
-card.
+"""The port's CUDA kernels (the GAT round, the Transformer stacks'
+LayerNorm and the GINE round's messages and sum, forward and backward)
+against their plain PyTorch twins, on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no JAX, so it runs
 on a machine that has only the port's dependencies:
@@ -29,6 +29,7 @@ from graphvqa_tpu_torch.ops.dense import dense_local_indices
 from graphvqa_tpu_torch.ops.gat_round import (
     gat_round, gat_round_backward, gat_round_backward_reference,
     gat_round_reference, launch_counts)
+from graphvqa_tpu_torch.ops import gine_messages as gm
 from graphvqa_tpu_torch.ops import row_layer_norm as rln
 # a top-level import: pytest puts tests/ on sys.path, and the card's machine
 # may have another package named `tests`
@@ -657,8 +658,9 @@ def test_every_family_card_against_cpu(family):
     in float32: the eval logits (and the bitmap) within 1e-4 of the CPU's;
     one train step's loss to rtol 1e-5 and every gradient within 1e-4 of its
     tensor's largest |gradient| + 1e-7; the GAT kernels launch once per
-    round on onlysg and gat, never on gcn, gine and lcgn. LCGN's context
-    features are one fixed draw on both sides."""
+    round on onlysg and gat, never on gcn, gine and lcgn, and the GINE pair
+    once per round on gine only. LCGN's context features are one fixed
+    draw on both sides."""
     import dataclasses
     import functools
     from graphvqa_tpu_torch.models.pipeline import build_model
@@ -676,21 +678,26 @@ def test_every_family_card_against_cpu(family):
     noise = torch.randn(batch.graphs.nodes_pad, cfg.model.transformer.hidden_dim,
                         generator=torch.Generator().manual_seed(0))
     rounds = cfg.model.engine.num_rounds if kind in ("gat", "none") else 0
+    gine = cfg.model.engine.num_rounds if kind == "gine" else 0
+
+    def counts():
+        return launch_counts() + gm.launch_counts()
+
     runs = []
     for device in ("cpu", dev):
         model = build_model(cfg.model, device=device, seed=3)
         if kind == "lcgn":
             model.lcgn_seq.forward = functools.partial(
                 model.lcgn_seq.forward, x_ctx=noise.to(device))
-        f0 = launch_counts()[0]
+        f0 = counts()
         out = model.sample(batch.to(device))
-        launched = launch_counts()[0] - f0
-        f0, b0 = launch_counts()[0], launch_counts()[1]
+        f1 = counts()
         _, m = make_train_step(model, cfg)(
             create_train_state(model, lr=1e-3), batch.to(device),
             torch.Generator(device=device))
-        launched = (launched, launch_counts()[0] - f0,
-                    launch_counts()[1] - b0)
+        f2 = counts()
+        launched = (f1[0] - f0[0], f2[0] - f1[0], f2[1] - f1[1],
+                    f1[2] - f0[2], f2[2] - f1[2], f2[3] - f1[3])
         bitmap = out.execution_bitmap
         runs.append((out.short_answer_logits.cpu(),
                      None if bitmap is None else bitmap.cpu(),
@@ -698,8 +705,8 @@ def test_every_family_card_against_cpu(family):
                      {n: p.grad.cpu() for n, p in model.named_parameters()
                       if p.grad is not None}))
     (lc, bc, loss_c, launched_c, gc), (lg, bg, loss_g, launched_g, gg) = runs
-    assert launched_c == (0, 0, 0)
-    assert launched_g == (rounds, rounds, rounds)
+    assert launched_c == (0,) * 6
+    assert launched_g == (rounds, rounds, rounds, gine, gine, gine)
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     if exe:
         torch.testing.assert_close(bg, bc, rtol=1e-4, atol=1e-4)
@@ -1326,3 +1333,208 @@ def test_layer_norm_launches_per_step_under_replay(monkeypatch):
         assert tuple(n - m for n, m in zip(rln.launch_counts(), f0)) == (
             eval_calls, 0)
     assert train_step.graphs.replays == 3 and eval_step.graphs.replays == 3
+
+
+# --- the GINE round's messages and sum (ops/gine_messages.py) ----------------
+
+GINE_C, GINE_D = 300, 512
+# (h, edge_attr, ins) dtypes: the bf16 model's rounds after the first, its
+# first round (the scene encoder's float32 h) and the float32 configurations
+GINE_DTYPES = {"bfloat16": (torch.bfloat16,) * 3,
+               "first_round": (torch.float32, torch.bfloat16, torch.bfloat16),
+               "float32": (torch.float32,) * 3}
+
+
+def _gine_inputs(g, dtypes, seed, dev, C=GINE_C, D=GINE_D):
+    """The pair's inputs on a packed batch ``g`` (ins already in the
+    messages' dtype, as the backward takes it) and a dz."""
+    g = g.to(dev)
+    dl, sl = dense_local_indices(g)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    th, te, ti = dtypes
+    h, edge_attr = randn(g.nodes_pad, C).to(th), randn(g.edges_pad, C).to(te)
+    ins = randn(g.num_graphs, D).to(ti)
+    ins = ins.to(gm.messages_dtype(h, ins, edge_attr))
+    dz = randn(g.nodes_pad, C + D).to(ins.dtype)
+    return (h, ins, edge_attr, dl, sl, g.edge_mask.reshape(dl.shape)), dz
+
+
+def _gine_close(got, want):
+    """bf16: within 2^-7 of the tensor's largest |value| (two bf16 ulps:
+    the f32 sums' order differs, then the sum and z or dh round once each);
+    float32: TOL."""
+    assert got.dtype == want.dtype
+    if got.dtype == torch.bfloat16:
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(want.float().abs().max()), err
+    else:
+        torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+def _gine_check(args, dz, npg):
+    """The pair against the plain versions run on the card: z's ins half
+    and d_edge_attr bit for bit, the rest within _gine_close; one launch of
+    each counted on the card."""
+    C = args[0].shape[1]
+    f0 = gm.launch_counts()
+    z = gm.gine_messages(*args, npg=npg)
+    grads = gm.gine_messages_backward(dz, *args, npg=npg)
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(gm.launch_counts(), f0)) == (1, 1)
+    z_ref = gm.gine_messages_reference(*args, npg=npg)
+    g_ref = gm.gine_messages_backward_reference(dz, *args, npg=npg)
+    assert torch.isfinite(z.float()).all()
+    assert torch.equal(z[:, C:], z_ref[:, C:])
+    _gine_close(z, z_ref)
+    assert torch.equal(grads[1], g_ref[1])
+    _gine_close(grads[0], g_ref[0])
+    _gine_close(grads[2], g_ref[2])
+    return z, grads
+
+
+@pytest.mark.parametrize("dtypes", sorted(GINE_DTYPES))
+def test_gine_pair_every_ladder_rung(dtypes):
+    """Every (npg, epg) rung the collate can produce, up to (512, 2048),
+    at C=300, D=512: a graph that fills the rung, ragged ones and a dummy
+    graph (the top rungs' stages need the opted-in shared memory)."""
+    dev = _device()
+    for npg, epg in LADDER:
+        args, dz = _gine_inputs(_rung_graphs(npg, epg, seed=npg + epg),
+                                GINE_DTYPES[dtypes], seed=npg, dev=dev)
+        _gine_check(args, dz, npg)
+
+
+@pytest.mark.parametrize("dtypes", sorted(GINE_DTYPES))
+def test_gine_pair_main_shape_twice_bit_for_bit(dtypes):
+    """B=200 GQA-shaped graphs at (64, 256): against the plain versions,
+    and two runs of each kernel bit for bit."""
+    dev = _device()
+    from graphvqa_tpu_torch.config import gine_config
+    g = _gqa_batch(gine_config(), 200, seed=22).graphs
+    args, dz = _gine_inputs(g, GINE_DTYPES[dtypes], seed=3, dev=dev)
+    z, grads = _gine_check(args, dz, 64)
+    assert torch.equal(gm.gine_messages(*args, npg=64), z)
+    again = gm.gine_messages_backward(dz, *args, npg=64)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+@pytest.mark.parametrize("case", ["no_edges", "all_masked"])
+def test_gine_pair_graphs_without_real_edges(case):
+    """Graphs without edges, and a batch whose every edge is masked while
+    its indices still point at real nodes: z is [h ; ins], dh dz's first
+    columns, d_edge_attr 0."""
+    dev = _device()
+    if case == "no_edges":
+        samples = [GraphSample(
+            node_tokens=np.ones((n, 12), np.int32),
+            edge_src=np.zeros(0, np.int32), edge_dst=np.zeros(0, np.int32),
+            edge_tokens=np.ones((0, 1), np.int32),
+            edge_sym=np.zeros(0, bool)) for n in (1, 30, 64)]
+        g = pack_graphs_dense(samples, 64, 256, num_graphs=4)
+    else:
+        g = _rung_graphs(64, 256, seed=4)
+        g.edge_mask[:] = False
+    args, dz = _gine_inputs(g, GINE_DTYPES["float32"], seed=5, dev=dev)
+    z, (dh, d_edge, _) = _gine_check(args, dz, 64)
+    h, ins = args[0], args[1]
+    assert torch.equal(z, torch.cat([h, ins.repeat_interleave(64, 0)], -1))
+    assert torch.equal(dh, dz[:, :GINE_C]) and not bool(d_edge.any())
+
+
+@pytest.mark.parametrize("dtypes", ["bfloat16", "float32"])
+@pytest.mark.parametrize("widths", [(300, 512), (13, 7)])
+def test_gine_pair_unaligned_inputs_and_odd_widths(widths, dtypes):
+    """h, edge_attr, ins and dz one element past an aligned address, and
+    widths that are not a multiple of 4: the one-element loads."""
+    dev = _device()
+    C, D = widths
+    args, dz = _gine_inputs(_rung_graphs(64, 256, seed=6),
+                            GINE_DTYPES[dtypes], seed=7, dev=dev, C=C, D=D)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    h, ins, edge_attr = (shifted(t) for t in args[:3])
+    dz = shifted(dz)
+    assert h.data_ptr() % 8 and edge_attr.data_ptr() % 8
+    _gine_check((h, ins, edge_attr) + args[3:], dz, 64)
+
+
+def test_gine_pair_replays_in_a_cuda_graph():
+    """Forward and backward captured once and replayed twice, at the main
+    rung and the top one (whose attribute the eager launch set): the
+    replays give the eager bits and count their launches, the capture
+    none."""
+    dev = _device()
+    for npg, epg in ((64, 256), (512, 2048)):
+        args, dz = _gine_inputs(_rung_graphs(npg, epg, seed=8),
+                                GINE_DTYPES["bfloat16"], seed=9, dev=dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            z_eager = gm.gine_messages(*args, npg=npg)
+            g_eager = gm.gine_messages_backward(dz, *args, npg=npg)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = gm.launch_counts()
+        with torch.cuda.graph(graph):
+            z = gm.gine_messages(*args, npg=npg)
+            grads = gm.gine_messages_backward(dz, *args, npg=npg)
+        for _ in range(2):
+            for t in (z,) + grads:
+                t.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(z, z_eager)
+            assert all(torch.equal(a, b) for a, b in zip(grads, g_eager))
+        assert gm.launch_counts() == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("dtypes", sorted(GINE_DTYPES))
+def test_gine_pair_through_autograd(dtypes):
+    """gine_messages with leaves that need gradients: the backward kernel
+    gives the plain backward's gradients, ins's in its own dtype (the
+    first round's bf16 ins goes through the float32 messages), one launch
+    of each kernel."""
+    dev = _device()
+    args, dz = _gine_inputs(_rung_graphs(64, 256, seed=10),
+                            GINE_DTYPES[dtypes], seed=11, dev=dev)
+    ins = args[1].to(GINE_DTYPES[dtypes][2])
+    leaves = [t.clone().requires_grad_() for t in (args[0], ins, args[2])]
+    f0 = gm.launch_counts()
+    z = gm.gine_messages(*leaves, *args[3:], npg=64)
+    dh, d_ins, d_edge = torch.autograd.grad(z, leaves, dz)
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(gm.launch_counts(), f0)) == (1, 1)
+    want = gm.gine_messages_backward_reference(dz, *args, npg=64)
+    assert d_ins.dtype == ins.dtype
+    _gine_close(dh, want[0])
+    assert torch.equal(d_edge, want[1])
+    _gine_close(d_ins, want[2].to(ins.dtype))
+
+
+def test_gine_kernel_stops_on_unsorted_edges():
+    """Real edges out of destination order trip the forward's device
+    assert (which ends the CUDA context: a subprocess)."""
+    _device()
+    script = textwrap.dedent("""
+        import torch
+        from graphvqa_tpu_torch.ops.gine_messages import gine_messages
+        dev = torch.device("cuda")
+        dl = torch.tensor([[1, 0, 0, 0]], dtype=torch.int32, device=dev)
+        sl = torch.zeros(1, 4, dtype=torch.int32, device=dev)
+        mask = torch.tensor([[True, True, False, False]], device=dev)
+        z = lambda *s: torch.zeros(*s, device=dev)
+        gine_messages(z(2, 4), z(1, 4), z(4, 4), dl, sl, mask, npg=2)
+        torch.cuda.synchronize()
+        print("no assert")
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=pathlib.Path(__file__).resolve().parents[1])
+    assert proc.returncode != 0, proc.stdout
+    assert "assert" in proc.stderr.lower(), proc.stderr[-2000:]
