@@ -378,24 +378,25 @@ def kernel_inputs(dev):
                 real_nodes=int(graph.node_mask.sum()))
 
 
-def least_bytes(inp, elem, with_ins, epg=EPG):
-    """The fewest bytes one GAT round must move on this batch: each input
-    element that the result depends on read once, the output written once.
-    That is the xw and alpha_l rows of distinct real sources, the alpha_r
-    rows of distinct real destinations, the alpha_e rows of real edges,
-    dl/sl/mask in full, ins in full when passed, and out in full. Padded
-    node rows of xw are never read, so they do not count."""
+def real_counts(inp):
+    """(distinct real sources, distinct real destinations, real edges) of
+    kernel_inputs' batch."""
     import torch
     dl, sl, mask = inp["dl"].long(), inp["sl"].long(), inp["mask"]
     real = (mask > 0) & (dl >= 0) & (dl < NPG) & (sl >= 0) & (sl < NPG)
     base = torch.arange(B, device=dl.device)[:, None] * NPG
-    n_src = int(torch.unique((sl + base)[real]).numel())
-    n_dst = int(torch.unique((dl + base)[real]).numel())
-    n_edges = int(real.sum())
-    f32 = 4
-    return (n_src * H * C * elem + n_src * H * f32 + n_dst * H * f32
-            + n_edges * H * f32 + 3 * B * epg * f32
-            + (B * H * C * elem if with_ins else 0) + B * NPG * C * elem)
+    return (int(torch.unique((sl + base)[real]).numel()),
+            int(torch.unique((dl + base)[real]).numel()), int(real.sum()))
+
+
+def least_bytes(inp, elem, with_ins, epg=EPG):
+    """The fewest bytes one GAT round must move on this batch, as the
+    benchmark counts them (``benchmark/counts/gat_bytes.py``): each input
+    element that the result depends on read once, the output written once.
+    Padded node rows of xw are never read, so they do not count."""
+    from benchmark.counts.gat_bytes import forward_bytes
+    return forward_bytes(B, NPG, epg, H, C, elem, *real_counts(inp),
+                         with_ins=with_ins)
 
 
 def phase_kernel(dev):
@@ -495,33 +496,20 @@ def keep_scale(inp, seed):
 
 
 def backward_least_bytes(inp, elem, with_keep, epg=EPG):
-    """The fewest bytes one GAT-round backward must move on this batch:
-    the forward's inputs that the gradients depend on read once (indices and
-    mask in full, the xw and alpha_l rows of distinct real sources, the
-    alpha_r rows and upstream-gradient rows of distinct real destinations,
-    the alpha_e and dropout-scale rows of real edges, ins in full), and
-    every gradient written once in full (d_xw, d_alpha_l/r, d_alpha_e,
-    d_ins)."""
-    import torch
-    dl, sl, mask = inp["dl"].long(), inp["sl"].long(), inp["mask"]
-    real = (mask > 0) & (dl >= 0) & (dl < NPG) & (sl >= 0) & (sl < NPG)
-    base = torch.arange(B, device=dl.device)[:, None] * NPG
-    n_src = int(torch.unique((sl + base)[real]).numel())
-    n_dst = int(torch.unique((dl + base)[real]).numel())
-    n_edges = int(real.sum())
-    f32 = 4
-    reads = (3 * B * epg * f32 + n_src * H * C * elem + n_src * H * f32
-             + n_dst * H * f32 + n_dst * C * elem
-             + n_edges * H * f32 * (2 if with_keep else 1) + B * H * C * elem)
-    writes = (B * NPG * H * C * elem + 2 * B * NPG * H * f32
-              + B * epg * H * f32 + B * H * C * elem)
-    return reads + writes, n_edges, n_dst
+    """The fewest bytes one GAT-round backward must move on this batch, as
+    the benchmark counts them (``benchmark/counts/gat_bytes.py``: the
+    forward's inputs that the gradients depend on read once, every gradient
+    written once in full) -> (bytes, real edges, real destinations)."""
+    from benchmark.counts.gat_bytes import backward_bytes
+    n_src, n_dst, n_edges = real_counts(inp)
+    return (backward_bytes(B, NPG, epg, H, C, elem, n_src, n_dst, n_edges,
+                           with_keep=with_keep), n_edges, n_dst)
 
 
 def phase_backward(dev):
     import torch
     from graphvqa_tpu_torch.ops.gat_round import (
-        gat_round_backward, gat_round_backward_reference)
+        _backward_launch, gat_round_backward, gat_round_backward_reference)
     inp = kernel_inputs(dev)
     args = tuple(inp[k] for k in ("dl", "sl", "mask", "al", "ar", "ae"))
     keep = keep_scale(inp, seed=2)
@@ -555,10 +543,10 @@ def phase_backward(dev):
                 fail(f"gat_round_backward {name} shift={shift} keep="
                      f"{with_keep}: {out_name} max abs err "
                      f"{float(diff.max()):.3e} beyond atol {atol} rtol {rtol}")
-        again = gat_round_backward(*call_args, **kw)
+        again, counter = _backward_launch(*call_args, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"gat_round_backward {name} shift={shift}: two runs differ")
-        units = int(gat_round_backward.counter)
+        units = int(counter)
         if units != B * H:
             fail(f"gat_round_backward handed out {units} work units, "
                  f"expected B*H = {B * H}")
@@ -730,24 +718,45 @@ def gine_rounds(cfg):
     return e.num_rounds if e.kind == "gine" else 0
 
 
+def kernel_launches(**counts):
+    """{kind: launches} for every kind the kernels count, in
+    ``ops/cuda_lib.py:KINDS``'s order; 0 where not given."""
+    from graphvqa_tpu_torch.ops.cuda_lib import KINDS
+    unknown = set(counts) - set(KINDS)
+    if unknown:
+        raise KeyError(f"no kernel counts {sorted(unknown)}")
+    return {kind: counts.get(kind, 0) for kind in KINDS}
+
+
+def scaled(launches, n):
+    """``launches`` ({kind: launches}) times ``n``."""
+    return {kind: v * n for kind, v in launches.items()}
+
+
 def step_launches(cfg, train):
-    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward,
-    gine_messages, gine_messages_backward) launches of one train step
-    (``train``) or eval request of a config on a dense batch."""
+    """{kind: launches} of one train step (``train``) or eval request of a
+    config on a dense batch."""
     rounds, gine = gat_rounds(cfg), gine_rounds(cfg)
     fwd, bwd, ev = layer_norm_launches(cfg)
-    return ((rounds, rounds, fwd, bwd, gine, gine) if train
-            else (rounds, 0, ev, 0, gine, 0))
+    if train:
+        return kernel_launches(
+            gat_round=rounds, gat_round_backward=rounds, layer_norm=fwd,
+            layer_norm_backward=bwd, gine_messages=gine,
+            gine_messages_backward=gine)
+    return kernel_launches(gat_round=rounds, layer_norm=ev,
+                           gine_messages=gine)
 
 
 def launch_counts():
-    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward,
-    gine_messages, gine_messages_backward) launches since the last
-    reset_launch_counts(), as the kernels counted them on the card (CUDA
-    graph replays too)."""
-    from graphvqa_tpu_torch.ops import gat_round, gine_messages, row_layer_norm
-    return (gat_round.launch_counts() + row_layer_norm.launch_counts()
-            + gine_messages.launch_counts())
+    """{kind: launches} since the last reset_launch_counts(), as the
+    kernels counted them on the card (CUDA graph replays too)."""
+    from graphvqa_tpu_torch.ops import cuda_lib
+    return cuda_lib.launch_counts()
+
+
+def launches_since(before):
+    """{kind: launches} since ``before``, a launch_counts() reading."""
+    return {kind: n - before[kind] for kind, n in launch_counts().items()}
 
 
 def reset_launch_counts():
@@ -756,19 +765,16 @@ def reset_launch_counts():
 
 
 def launch_text(launches):
-    return ("gat_round {}, gat_round_backward {}, layer_norm {}, "
-            "layer_norm_backward {}, gine_messages {}, "
-            "gine_messages_backward {}".format(*launches))
+    """'gat_round N, gat_round_backward N, ...', as the CLI prints them."""
+    return ", ".join(f"{kind} {n}" for kind, n in launches.items())
 
 
 def cli_launches(text, what):
-    """The six counts of the CLI's last 'kernel launches (``what``)'
+    """{kind: launches} of the CLI's last 'kernel launches (``what``)'
     line."""
-    return tuple(int(v) for v in _last_match(
-        rf"kernel launches \({re.escape(what)}\): gat_round (\d+), "
-        r"gat_round_backward (\d+), layer_norm (\d+), "
-        r"layer_norm_backward (\d+), gine_messages (\d+), "
-        r"gine_messages_backward (\d+)", text, f"{what} launches"))
+    line = _last_match(rf"kernel launches \({re.escape(what)}\): (.*)", text,
+                       f"{what} launches")
+    return {kind: int(n) for kind, n in re.findall(r"(\w+) (\d+)", line)}
 
 
 def phase_serve(cfg, dev, model, tag="serve", ctx=None, relative=False):
@@ -798,7 +804,7 @@ def phase_serve(cfg, dev, model, tag="serve", ctx=None, relative=False):
         outs.append(out)
     launches = launch_counts()
     want = step_launches(cfg, train=False)
-    if launches != tuple(v * len(times) for v in want):
+    if launches != scaled(want, len(times)):
         fail(f"{tag}: {launch_text(launches)} launches in {len(times)} "
              f"requests, expected {launch_text(want)} per request")
     V = cfg.model.text.vocab_size
@@ -869,21 +875,16 @@ def phase_profile(model, step, request):
     profiled_step(lambda: step(request), "profile", 10)
 
 
-# the host's calls that put work on the card: kernel launches, graph
-# launches, and the copies and fills the caching allocator's users enqueue
-HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
-                     "cudaMemcpyAsync", "cudaMemsetAsync")
-
-
 def profiled_step(fn, tag, top):
     """One call of ``fn`` under torch.profiler: wall time, the device's
-    busy share, the host's launch calls (``HOST_LAUNCH_CALLS``) and its
-    ``top`` heaviest kernels -> dict(wall_ms, busy_ms, kernels,
-    host_launches), None when the profiler saw no device time."""
+    busy share, the host's launch calls (the benchmark's
+    ``HOST_LAUNCH_CALLS``) and its ``top`` heaviest kernels ->
+    dict(wall_ms, busy_ms, kernels, host_launches), None when the profiler
+    saw no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from benchmark.harness.trace import HOST_LAUNCH_CALLS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -951,7 +952,7 @@ def phase_train(cfg, dev, model, steps=5, tag="train", ctx=None, top=12):
         losses.append(float(m["total"]))
     launches = launch_counts()
     want = step_launches(cfg, train=True)
-    if launches != tuple(v * len(times) for v in want):
+    if launches != scaled(want, len(times)):
         fail(f"{tag}: {launch_text(launches)} launches in {len(times)} "
              f"steps, expected {launch_text(want)} per step")
     if not all(map(math.isfinite, losses)):
@@ -1356,8 +1357,10 @@ def phase_cli(cfg, dev, data):
     tr = cli_launches(train_out, "train epoch 0")
     kernel_steps = steps - layouts["flat_fallback"]
     ln_fwd, ln_bwd, ln_eval = layer_norm_launches(cfg)
-    if tr != (rounds * kernel_steps, rounds * kernel_steps, ln_fwd * steps,
-              ln_bwd * steps, 0, 0):
+    if tr != kernel_launches(
+            gat_round=rounds * kernel_steps,
+            gat_round_backward=rounds * kernel_steps,
+            layer_norm=ln_fwd * steps, layer_norm_backward=ln_bwd * steps):
         fail(f"CLI epoch: {launch_text(tr)} launches for {steps} steps, "
              f"{kernel_steps} dense, expected gat_round and "
              f"gat_round_backward {rounds} each per dense step, layer_norm "
@@ -1375,7 +1378,8 @@ def phase_cli(cfg, dev, data):
                             train_out, "validation summary"))
     val = cli_launches(train_out, "validate epoch 0")
     batches = -(-val_q // B)
-    if val != (rounds * batches, 0, ln_eval * batches, 0, 0, 0):
+    if val != kernel_launches(gat_round=rounds * batches,
+                              layer_norm=ln_eval * batches):
         fail(f"CLI validation: {launch_text(val)} launches for {val_q} "
              f"questions")
     if not (out / "ckpt" / "ckpt_0.pt").exists():
@@ -1392,7 +1396,8 @@ def phase_cli(cfg, dev, data):
     eval_qa_s, eval_q = float(ev[-1][0]), int(ev[-1][1])
     ev = cli_launches(eval_out, "evaluate val_balanced")
     batches = -(-eval_q // B)
-    if ev != (rounds * batches, 0, ln_eval * batches, 0, 0, 0):
+    if ev != kernel_launches(gat_round=rounds * batches,
+                             layer_norm=ln_eval * batches):
         fail(f"CLI evaluate: {launch_text(ev)} launches for {eval_q} "
              f"questions")
     dump = json.loads((out / "dump_results.json").read_text())
@@ -1425,8 +1430,11 @@ def phase_cli(cfg, dev, data):
         f"{accuracy}, {grounding}")
     phase_flat(cfg, dev, data)
     log(f"[cli] phase {time.perf_counter() - t_phase:.1f}s")
-    return dict(forward=tr[0] + val[0] + ev[0], backward=tr[1],
-                layer_norm=tr[2] + val[2] + ev[2], layer_norm_backward=tr[3])
+    return dict(
+        forward=tr["gat_round"] + val["gat_round"] + ev["gat_round"],
+        backward=tr["gat_round_backward"],
+        layer_norm=tr["layer_norm"] + val["layer_norm"] + ev["layer_norm"],
+        layer_norm_backward=tr["layer_norm_backward"])
 
 
 def phase_flat(cfg, dev, data):
@@ -1464,7 +1472,8 @@ def phase_flat(cfg, dev, data):
         outs[str(device)] = model.sample(batch.to(device)).short_answer_logits \
             .float().cpu()
         if device != "cpu":
-            if launch_counts()[:2] != f0[:2]:
+            since = launches_since(f0)
+            if since["gat_round"] or since["gat_round_backward"]:
                 fail("the flat batch launched the GAT kernel")
             gen = torch.Generator(device=device).manual_seed(0)
             _, m = make_train_step(model, fcfg)(create_train_state(model),
@@ -1534,12 +1543,13 @@ def phase_families(dev, data):
                                   relative=True)
         train = phase_train(cfg, dev, model, steps=3, tag=tag, ctx=ctx,
                             top=5)
-        launches[name] = dict(forward=serve[0] + train[0],
-                              backward=train[1],
-                              layer_norm=serve[2] + train[2],
-                              layer_norm_backward=train[3],
-                              gine_messages=serve[4] + train[4],
-                              gine_messages_backward=train[5])
+        launches[name] = dict(
+            forward=serve["gat_round"] + train["gat_round"],
+            backward=train["gat_round_backward"],
+            layer_norm=serve["layer_norm"] + train["layer_norm"],
+            layer_norm_backward=train["layer_norm_backward"],
+            gine_messages=serve["gine_messages"] + train["gine_messages"],
+            gine_messages_backward=train["gine_messages_backward"])
         log(f"[{tag}] launches: serve {launch_text(serve)} (3 requests), "
             f"train {launch_text(train)} (3 steps); "
             f"{time.perf_counter() - t0:.1f}s")
@@ -1567,7 +1577,8 @@ def phase_cli_lcgn(data):
         fail(f"lcgn CLI: training losses {losses}")
     tr = cli_launches(stdout, "train epoch 0")
     ln_fwd, ln_bwd, _ = layer_norm_launches(family_config("lcgn"))
-    if tr != (0, 0, ln_fwd * 2, ln_bwd * 2, 0, 0):
+    if tr != kernel_launches(layer_norm=ln_fwd * 2,
+                             layer_norm_backward=ln_bwd * 2):
         fail(f"lcgn CLI: {launch_text(tr)} launches in 2 steps, expected "
              f"no GAT kernel, layer_norm {ln_fwd} and layer_norm_backward "
              f"{ln_bwd} per step")
@@ -1992,7 +2003,7 @@ def phase_graphs(dev, data):
     eval_ms = {"captured": timed_steps(lambda: cap_eval(requests[1]), 3)}
     eval_launches = launch_counts()
     per_request = step_launches(cfg, train=False)
-    if eval_launches != tuple(v * 4 for v in per_request):
+    if eval_launches != scaled(per_request, 4):
         fail(f"{tag}: {launch_text(eval_launches)} launches in 4 replayed "
              f"requests, expected {launch_text(per_request)} per request")
     eval_ms["eager"] = timed_steps(lambda: eager_eval(requests[1]), 3)
@@ -2014,7 +2025,7 @@ def phase_graphs(dev, data):
         lambda: cap_train(state, batch, gen), 5)}
     train_launches = launch_counts()
     per_step = step_launches(cfg, train=True)
-    if train_launches != tuple(v * 6 for v in per_step):
+    if train_launches != scaled(per_step, 6):
         fail(f"{tag}: {launch_text(train_launches)} launches in 6 replayed "
              f"train steps, expected {launch_text(per_step)} per step")
     train_ms["eager"] = timed_steps(lambda: eager_train(state, batch, gen), 5)
@@ -2717,7 +2728,7 @@ def _hold_run(tag, mode, run, launches, collectives):
     number or order: the eager call's own, or none for a replay whose
     graph holds its collectives (NCCL)."""
     n = len(run["times"])
-    if run["launches"] != tuple(v * n for v in launches):
+    if run["launches"] != scaled(launches, n):
         fail(f"{tag} {mode}: {launch_text(run['launches'])} launches in {n} "
              f"calls, expected {launch_text(launches)} per call")
     if not all(map(math.isfinite, run.get("losses", []))):
@@ -2740,7 +2751,7 @@ def _timing_line(tag, runs, cfg):
     one."""
     per_step = step_launches(cfg, train=True)
     per_request = step_launches(cfg, train=False)
-    total = [0] * 6
+    total = kernel_launches()
     for r, rec in enumerate(runs):
         eager = rec["reduce_calls"][0]
         modes = ([("captured", rec["captured"])] if "captured" in rec
@@ -2757,8 +2768,8 @@ def _timing_line(tag, runs, cfg):
                 _hold_run(f"{tag} rank {r} eval", mode, run, per_request,
                           eager)
                 texts.append(f"eval {mode} " + _run_text(run, "request"))
-        for k, v in enumerate(modes[0][1]["launches"]):
-            total[k] += v
+        for kind, v in modes[0][1]["launches"].items():
+            total[kind] += v
         log(f"[{tag}] rank {r}: " + "; ".join(texts) + f"; epg_loc "
             f"{rec['epg_loc']}, the gradient all-reduce alone "
             f"{rec['reduce_ms']:.1f} ms, peak {rec['peak_gib']:.2f} GiB "
@@ -3033,7 +3044,7 @@ def phase_cli_dist(data):
     from graphvqa_tpu_torch.config import gat_config
     t0 = time.perf_counter()
     root = data["data"]
-    launches = [0] * 6
+    launches = kernel_launches()
     ln_fwd, ln_bwd, _ = layer_norm_launches(gat_config())
     for tag, nproc, bsz, epochs, extra in (
             ("nccl", 1, B, 1, []),
@@ -3052,7 +3063,8 @@ def phase_cli_dist(data):
             "--fast-validate", "1"], f"cli_{tag}_train")
         tr = cli_launches(train_out, "train epoch 0")
         steps = 1024 // (bsz * data_ranks)
-        if tr[2:4] != (ln_fwd * steps, ln_bwd * steps):
+        if (tr["layer_norm"], tr["layer_norm_backward"]) != (
+                ln_fwd * steps, ln_bwd * steps):
             fail(f"CLI {tag}: {launch_text(tr)} launches in epoch 0 of "
                  f"{steps} steps, expected layer_norm {ln_fwd} and "
                  f"layer_norm_backward {ln_bwd} per step")
@@ -3076,8 +3088,8 @@ def phase_cli_dist(data):
             fail(f"CLI {tag}: the gathered dumps hold {len(dump)} results "
                  f"/ {len(atts)} attention rows for {len(want)} questions")
         res = _last_match(r"val_balanced (\{.*\})", eval_out, "evaluate result")
-        for k, v in enumerate(tr):
-            launches[k] += v
+        for kind, v in tr.items():
+            launches[kind] += v
         graphs = ""
         if nproc > 1:
             train_calls, eval_calls = (
@@ -3309,13 +3321,14 @@ def phase_layer_norm(dev):
             for fn in (rln.layer_norm, rln.layer_norm_reference):
                 xx, ww, bb = (t.detach().clone().requires_grad_()
                               for t in (x, w, b))
-                before = launch_counts()[2:4]
+                before = launch_counts()
                 y = fn(xx, ww, bb, LN_EPS, bf16)
                 y.backward(dy)
                 torch.cuda.synchronize()
+                since = launches_since(before)
                 runs.append((y.detach(), (xx.grad, ww.grad, bb.grad),
-                             tuple(n - m for n, m in zip(launch_counts()[2:4],
-                                                         before))))
+                             (since["layer_norm"],
+                              since["layer_norm_backward"])))
             (y, grads, counted), (y_ref, grads_ref, _) = runs
             if counted != (1, 1):
                 fail(f"layer_norm {name}: one pass through autograd counted "
@@ -3410,17 +3423,16 @@ def phase_layer_norm(dev):
 def layer_norm_summary(kind, phase, serve, train, cli, families, multi,
                        graphs):
     """The kernels line's entry of the LayerNorm forward or backward: the
-    launches of every path, counted on the card (the index into the
-    launch_counts() tuples), phase 15's worst readings and its times at
-    16,000 rows in bf16 (and at each row count)."""
-    k = 2 if kind == "forward" else 3
+    launches of every path, counted on the card, phase 15's worst readings
+    and its times at 16,000 rows in bf16 (and at each row count)."""
     name = "layer_norm" if kind == "forward" else "layer_norm_backward"
-    paths = {"serve": serve[k], "train": train[k], "cli": cli[name],
+    paths = {"serve": serve[name], "train": train[name], "cli": cli[name],
              **{f: families[f][name] for f in FAMILIES},
-             "dp": multi["dp"][k], "edge": multi["edge"][k],
-             "edge_2x2": multi["edge_2x2"][k], "cli_dist": multi["cli"][k],
-             "graphs_eval": graphs["eval_forward"][k],
-             "graphs_train": graphs["train"][k]}
+             "dp": multi["dp"][name], "edge": multi["edge"][name],
+             "edge_2x2": multi["edge_2x2"][name],
+             "cli_dist": multi["cli"][name],
+             "graphs_eval": graphs["eval_forward"][name],
+             "graphs_train": graphs["train"][name]}
     if kind == "backward":
         del paths["serve"], paths["graphs_eval"]
     main = phase["timing"][(kind, 16000)]
@@ -3431,7 +3443,7 @@ def layer_norm_summary(kind, phase, serve, train, cli, families, multi,
             "source": "graphvqa_tpu_torch/csrc/layer_norm.cu",
             "replaces": "none: XLA's fusion of flax nn.LayerNorm "
                         "(graphvqa_tpu/nn/transformer.py:183)",
-            "launches": train[k], "launches_by_path": paths,
+            "launches": train[name], "launches_by_path": paths,
             ("max_err_f32_ulps" if kind == "forward"
              else "max_err_share_of_limit"): {e: worst[e] for e in errs},
             "ms": main["ms"], "plain_ms": main["plain_ms"],
@@ -3531,13 +3543,14 @@ def phase_gine(dev):
         ins = ins.to(gm.messages_dtype(h, ins, edge_attr))
         dz = randn(g.nodes_pad, C + GINE_D, dtype=str(ins.dtype)[6:])
         args = (h, ins, edge_attr, dl, sl, mask)
-        f0 = gm.launch_counts()
+        f0 = launch_counts()
         z = gm.gine_messages(*args, npg=NPG)
         z_again = gm.gine_messages(*args, npg=NPG)
         grads = gm.gine_messages_backward(dz, *args, npg=NPG)
         grads_again = gm.gine_messages_backward(dz, *args, npg=NPG)
         torch.cuda.synchronize()
-        counted = tuple(n - m for n, m in zip(gm.launch_counts(), f0))
+        since = launches_since(f0)
+        counted = (since["gine_messages"], since["gine_messages_backward"])
         if counted != (2, 2):
             fail(f"gine {name}: two calls of each kernel counted {counted}")
         if not (torch.equal(z, z_again) and all(
@@ -3631,7 +3644,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     try:
         from graphvqa_tpu_torch.config import gat_config
-        from graphvqa_tpu_torch.ops import gat_round as gr
+        from graphvqa_tpu_torch.ops import cuda_lib
     except ImportError as exc:
         fail(f"the graphvqa_tpu_torch package is not importable: {exc}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3647,10 +3660,10 @@ def main() -> None:
         log(f"[seconds] phase {phase}: {now - clock[0]:.1f}s")
         clock[0] = now
 
-    lib = gr.load_library()
-    log(f"[build] nvcc {lib.build_seconds:.1f}s (in parallel) -> "
-        f"{', '.join(str(p) for p in lib.paths.values())}")
-    for line in lib.log.strip().splitlines():
+    built = cuda_lib.kernel_libraries()
+    log(f"[build] nvcc {built.build_seconds:.1f}s (in parallel) -> "
+        f"{', '.join(str(p) for p in built.paths.values())}")
+    for line in built.log.strip().splitlines():
         if any(w in line for w in ("registers", "spill", "error", "smem")):
             log(f"[build] {line.strip()}")
     done("1 build")
@@ -3697,15 +3710,18 @@ def main() -> None:
         "name": "gat_round", "route": "cuda",
         "source": "graphvqa_tpu_torch/csrc/gat_round.cu",
         "replaces": "graphvqa_tpu/ops/pallas/fused_dense_gat.py:44",
-        "launches": train[0],
-        "launches_by_path": {"serve": serve[0], "train": train[0],
+        "launches": train["gat_round"],
+        "launches_by_path": {"serve": serve["gat_round"],
+                             "train": train["gat_round"],
                              "cli": cli["forward"],
                              "onlysg": families["onlysg"]["forward"],
                              "exec": families["exec"]["forward"],
-                             "dp": multi["dp"][0], "edge": multi["edge"][0],
-                             "edge_2x2": multi["edge_2x2"][0],
-                             "graphs_eval": graphs["eval_forward"][0],
-                             "graphs_train": graphs["train"][0]},
+                             "dp": multi["dp"]["gat_round"],
+                             "edge": multi["edge"]["gat_round"],
+                             "edge_2x2": multi["edge_2x2"]["gat_round"],
+                             "graphs_eval":
+                                 graphs["eval_forward"]["gat_round"],
+                             "graphs_train": graphs["train"]["gat_round"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernel.values()),
         "ladder_max_abs_err": ladder["forward"],
         "shard_max_abs_err": max(r["forward_err"]
@@ -3719,13 +3735,17 @@ def main() -> None:
         "source": "graphvqa_tpu_torch/csrc/gat_round_backward.cu",
         "replaces": "none: XLA autodiff of "
                     "graphvqa_tpu/ops/dense.py:350 dense_gat_aggregate",
-        "launches": train[1],
-        "launches_by_path": {"train": train[1], "cli": cli["backward"],
+        "launches": train["gat_round_backward"],
+        "launches_by_path": {"train": train["gat_round_backward"],
+                             "cli": cli["backward"],
                              "onlysg": families["onlysg"]["backward"],
                              "exec": families["exec"]["backward"],
-                             "dp": multi["dp"][1], "edge": multi["edge"][1],
-                             "edge_2x2": multi["edge_2x2"][1],
-                             "graphs_train": graphs["train"][1]},
+                             "dp": multi["dp"]["gat_round_backward"],
+                             "edge": multi["edge"]["gat_round_backward"],
+                             "edge_2x2":
+                                 multi["edge_2x2"]["gat_round_backward"],
+                             "graphs_train":
+                                 graphs["train"]["gat_round_backward"]},
         "max_abs_err": max(r["max_abs_err"] for r in backward.values()),
         "ladder_max_abs_err": ladder["backward"],
         "shard_max_abs_err": max(r["backward_err"]

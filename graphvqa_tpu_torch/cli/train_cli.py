@@ -296,15 +296,6 @@ def build_config(args, text_vocab_size: int, sg_vocab_size: int):
                {"use_program_loss": args.program_loss == "on"})))
 
 
-def _launches():
-    """(gat_round, gat_round_backward, layer_norm, layer_norm_backward,
-    gine_messages, gine_messages_backward) kernel launches so far, as the
-    kernels counted them on the card (replays of the step graphs too)."""
-    from graphvqa_tpu_torch.ops import gat_round, gine_messages, row_layer_norm
-    return (gat_round.launch_counts() + row_layer_norm.launch_counts()
-            + gine_messages.launch_counts())
-
-
 def _print_graphs(what, step, mesh) -> None:
     """The step's CUDA-graph calls so far (nothing for an eager step), on
     several ranks each rank's, gathered to rank 0 (every rank calls this
@@ -324,13 +315,13 @@ def _print_graphs(what, step, mesh) -> None:
 
 
 def _print_launches(what, before):
-    now = _launches()
-    print(f"kernel launches ({what}): gat_round {now[0] - before[0]}, "
-          f"gat_round_backward {now[1] - before[1]}, "
-          f"layer_norm {now[2] - before[2]}, "
-          f"layer_norm_backward {now[3] - before[3]}, "
-          f"gine_messages {now[4] - before[4]}, "
-          f"gine_messages_backward {now[5] - before[5]}")
+    """The hand-written kernels' launches since ``before``, a
+    ``cuda_lib.launch_counts()`` reading, as they counted them on the card
+    (replays of the step graphs too)."""
+    from graphvqa_tpu_torch.ops import cuda_lib
+    now = cuda_lib.launch_counts()
+    print(f"kernel launches ({what}): " + ", ".join(
+        f"{kind} {n - before[kind]}" for kind, n in now.items()))
 
 
 def _print_segments(what) -> None:
@@ -370,6 +361,7 @@ def main(args):
     from graphvqa_tpu_torch.models.pipeline import build_model
     from graphvqa_tpu_torch.models.pretrained import (
         inject_pretrained_embeddings)
+    from graphvqa_tpu_torch.ops import cuda_lib
     from graphvqa_tpu_torch.parallel.data_parallel import make_dp_train_step
     from graphvqa_tpu_torch.parallel.edge_sharded import (
         make_edge_eval_step, prepare_dp_edge_batch, prepare_edge_eval_batch)
@@ -477,7 +469,7 @@ def main(args):
                   GQADataset(programs_path(split), scenes_path(split),
                              text_vocab, sg_vocab))
             suffix = "" if split == args.val_split else f"_{split}"
-            before = _launches()
+            before = cuda_lib.launch_counts()
             res = validate(
                 eval_step, eval_batches(ds), cfg, text_vocab=text_vocab,
                 label2ans=label2ans,
@@ -531,7 +523,7 @@ def main(args):
 
     steps_per_epoch = len(train_ds) // D // (args.batch_size * K)
     for epoch in range(start_epoch, args.epochs):
-        stats_before, before = dict(collate_stats), _launches()
+        stats_before, before = dict(collate_stats), cuda_lib.launch_counts()
         state.epoch = epoch
         state = train_one_epoch(
             train_step, state, prefetch(batches_fn(epoch), depth=4),
@@ -548,7 +540,7 @@ def main(args):
         _print_segments(f"train epoch {epoch}")
         _print_graphs(f"train epoch {epoch}", train_step, mesh)
         if (epoch + 1) % args.validate_every == 0:
-            before = _launches()
+            before = cuda_lib.launch_counts()
             res = validate(eval_step, eval_batches(val_ds), cfg,
                            text_vocab=text_vocab, label2ans=label2ans,
                            print_freq=args.print_freq,

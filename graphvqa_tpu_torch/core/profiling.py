@@ -34,9 +34,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import pathlib
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -49,8 +48,9 @@ SEGMENTS = ("encoders", "program_decoder", "engine", "engine_messages",
             "classifier", "full_answer_decoder", "loss_backward", "optimizer",
             "allreduce")
 _INDEX = {name: k for k, name in enumerate(SEGMENTS)}
-_SOURCE = (pathlib.Path(__file__).resolve().parents[1] / "csrc"
-           / "segment_stamp.cu")
+# csrc/segment_stamp.cu's launcher: {function: (argtypes, restype)}
+_STAMP = {"segment_stamp_launch": (
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
 
 _on = False
 _NULL = contextlib.nullcontext()
@@ -58,7 +58,6 @@ _NULL = contextlib.nullcontext()
 _words: Dict[int, torch.Tensor] = {}
 # the same layout for stamps on the CPU, on the host clock
 _host = [0] * (2 + len(SEGMENTS))
-_library: Optional[ctypes.CDLL] = None
 
 
 class ThroughputMeter:
@@ -145,8 +144,9 @@ def _mark(k: int, device: torch.device) -> None:
             _host[2 + k] += now - _host[0]
         _host[0] = now
         return
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
+    # imported here: ops sits above core (its kernels' seam builds the stamp)
+    from graphvqa_tpu_torch.ops import cuda_lib
+    index = cuda_lib.device_index(device)
     words = _words.get(index)
     if words is None:
         if torch.cuda.is_current_stream_capturing():
@@ -154,34 +154,11 @@ def _mark(k: int, device: torch.device) -> None:
                 f"the first segment stamp on {device} falls inside a CUDA "
                 f"graph capture: run the step once eagerly with tracing on "
                 f"before capturing it")
-        lib = _load()
         # a normal tensor even when the first stamp is an eval step's, so
         # that reset_segments may zero it anywhere
         with torch.inference_mode(False):
             words = _words[index] = torch.zeros(
                 2 + len(SEGMENTS), dtype=torch.int64, device=device)
-    else:
-        lib = _library
-    stream = torch.cuda.current_stream(index).cuda_stream
-    if torch.cuda.current_device() == index:
-        err = lib.segment_stamp_launch(words.data_ptr(), k, stream)
-    else:
-        with torch.cuda.device(index):
-            err = lib.segment_stamp_launch(words.data_ptr(), k, stream)
-    if err != 0:
-        raise RuntimeError(f"segment stamp launch failed: CUDA error {err}")
-
-
-def _load() -> ctypes.CDLL:
-    """Build ``csrc/segment_stamp.cu`` with the GAT kernels' nvcc path (once
-    per source content) and load it."""
-    global _library
-    if _library is None:
-        from graphvqa_tpu_torch.ops.cuda_lib import build_sources
-        paths, _, _ = build_sources({"stamp": _SOURCE})
-        lib = ctypes.CDLL(str(paths["stamp"]))
-        lib.segment_stamp_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                             ctypes.c_void_p]
-        lib.segment_stamp_launch.restype = ctypes.c_int
-        _library = lib
-    return _library
+    cuda_lib.launch(cuda_lib.bind("segment_stamp", _STAMP)
+                    .segment_stamp_launch, (words.data_ptr(), k), device,
+                    "segment stamp")

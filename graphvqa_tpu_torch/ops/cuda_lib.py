@@ -1,22 +1,31 @@
-"""The port's hand-written CUDA libraries: their build, their launch on the
-current stream, and the launch counts the kernels keep on the card.
+"""The one seam of the port's hand-written CUDA kernels: their build, their
+binding, their contract checks, their launch on the current stream and the
+launch counts they keep on the card. An op module holds only its kernel's
+contract, its plain twin and its autograd ``Function``.
 
 Each ``csrc/*.cu`` source builds with nvcc for sm_90a into a shared library
 of its own under ``build/graphvqa_tpu_torch/``, cached by the content of
-the source and of the ``csrc/`` headers it includes and by the flags, and
-is bound with ctypes by the op module that launches it.
+the source and of the ``csrc/`` headers it includes and by the flags.
 :func:`kernel_libraries` builds the model's kernel sources
 (:data:`KERNEL_SOURCES`) at their first use, one nvcc each, all started
-together, so a first step waits for the slowest build, not for their sum.
+together, so a first step waits for the slowest build, not for their sum; a
+source outside them (the tracing's ``segment_stamp.cu``) builds alone, at
+its first :func:`bind`. :func:`bind` loads a library with ctypes and sets
+each launcher's signature, once per process.
 
-:func:`launch` calls a library's launcher with the current stream of a
+:func:`check_tensor` and :data:`DTYPE_CODES` are the kernels' shared input
+contract. :func:`launch` calls a launcher with the current stream of a
 tensor's card. Each kernel counts its own launches where it runs: block 0
-adds one to a 64-bit word of its kind on its card (:func:`launch_word`), so
-a CUDA graph's replay, which runs no Python, counts its launches as eager
-calls do (:func:`launch_counts`, :func:`reset_launch_counts`).
+adds one to a 64-bit word of its kind (:data:`KINDS`) on its card
+(:func:`launch_word`), so a CUDA graph's replay, which runs no Python,
+counts its launches as eager calls do (:func:`launch_counts`,
+:func:`reset_launch_counts`). A new kernel adds its source to
+:data:`KERNEL_SOURCES` and its kinds to :data:`KINDS`; every reader of the
+counts takes them by name.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import pathlib
@@ -24,7 +33,7 @@ import re
 import shutil
 import subprocess
 import time
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +43,12 @@ KERNEL_SOURCES = {name: CSRC / f"{name}.cu"
                   for name in ("gat_round", "gat_round_backward",
                                "layer_norm", "gine_messages",
                                "gine_messages_backward")}
+# the kinds of launch the kernels count on the card, in the order the CLI
+# prints them
+KINDS = ("gat_round", "gat_round_backward", "layer_norm",
+         "layer_norm_backward", "gine_messages", "gine_messages_backward")
+# the kernels' code for each float dtype they take
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]
               / "build" / "graphvqa_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,6 +67,8 @@ class Built(NamedTuple):
 
 
 _built: Optional[Built] = None
+# per source name: its library, bound
+_bound: Dict[str, ctypes.CDLL] = {}
 # per (kind, device index): the int64 word on that card to which each
 # launch of the kind adds one
 _launch_words: dict = {}
@@ -120,6 +137,37 @@ def kernel_libraries() -> Built:
     return _built
 
 
+def bind(name: str,
+         signatures: Dict[str, Tuple[Sequence, type]]) -> ctypes.CDLL:
+    """The library of source ``name`` with each launcher's ``{function:
+    (argtypes, restype)}`` set; built and bound on the first call (module
+    doc), the same object after."""
+    lib = _bound.get(name)
+    if lib is None:
+        paths = (kernel_libraries() if name in KERNEL_SOURCES
+                 else build_sources({name: CSRC / f"{name}.cu"})).paths
+        lib = ctypes.CDLL(str(paths[name]))
+        for fn, (argtypes, restype) in signatures.items():
+            launcher = getattr(lib, fn)
+            launcher.argtypes, launcher.restype = list(argtypes), restype
+        _bound[name] = lib
+    return lib
+
+
+def check_tensor(name: str, t: torch.Tensor, shape, dtypes,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is on ``device``, of one of ``dtypes``, of
+    ``shape`` and contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
@@ -166,14 +214,16 @@ def launch_word(kind: str, dev: torch.device) -> torch.Tensor:
     return word
 
 
-def launch_counts(kinds) -> tuple:
-    """Each of ``kinds``' launches on every card since the last
-    :func:`reset_launch_counts`, as the kernels counted them where they ran:
-    eager launches and those of CUDA graph replays alike. Reads the cards,
-    so it waits for the work queued on them; 0 where no kernel of the kind
-    has launched."""
-    return tuple(sum(int(w.item()) for (k, _), w in _launch_words.items()
-                     if k == kind) for kind in kinds)
+def launch_counts() -> Dict[str, int]:
+    """{kind: launches} for every kind of :data:`KINDS`, in that order, on
+    every card since the last :func:`reset_launch_counts`, as the kernels
+    counted them where they ran: eager launches and those of CUDA graph
+    replays alike. Reads the cards, so it waits for the work queued on them;
+    0 for a kind that never launched (on the CPU the plain twins run)."""
+    counts = dict.fromkeys(KINDS, 0)
+    for (kind, _), word in _launch_words.items():
+        counts[kind] += int(word.item())
+    return counts
 
 
 def reset_launch_counts() -> None:

@@ -52,6 +52,32 @@ def dense_local_indices(graph: GraphBatch):
     return dl.contiguous(), sl.contiguous()
 
 
+def _real_local(dl, sl, mask, npg):
+    """[B, epg] bool: mask > 0 and both local indices inside [0, npg)."""
+    return (mask > 0) & (dl >= 0) & (dl < npg) & (sl >= 0) & (sl < npg)
+
+
+def dense_edges(dl, sl, mask, npg):
+    """(real [E] bool, src, dst [E] int64 global rows, 0 on padded edges) of
+    the dense layout's [B, epg] local indices and mask (> 0 or true on real
+    edges): the hand-written kernels' edges as their plain twins index
+    them."""
+    dl64, sl64 = dl.long(), sl.long()
+    real = _real_local(dl64, sl64, mask, npg)
+    base = (torch.arange(dl.shape[0], device=dl.device) * npg)[:, None]
+    return (real.reshape(-1), torch.where(real, sl64 + base, 0).reshape(-1),
+            torch.where(real, dl64 + base, 0).reshape(-1))
+
+
+def edges_dst_sorted(dl, sl, mask, npg) -> bool:
+    """True when every graph's real edges come first, sorted by destination,
+    and its padded edges last (the hand-written kernels' precondition)."""
+    real = _real_local(dl, sl, mask, npg)
+    d = torch.where(real, dl, -1)
+    prev = d[:, :-1]
+    return not bool((real[:, 1:] & ((prev < 0) | (prev > d[:, 1:]))).any())
+
+
 def _masked_edges(graph: GraphBatch, values: torch.Tensor) -> torch.Tensor:
     return torch.where(graph.edge_mask[:, None], values, 0.0)
 

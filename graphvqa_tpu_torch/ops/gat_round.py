@@ -8,8 +8,8 @@
 destination, the head mean, and the per-graph ``ins_value`` share through the
 attention row sums.
 
-On a CUDA tensor the wrapper launches ``csrc/gat_round.cu`` (built with nvcc
-for sm_90a at first use, bound with ctypes) or raises; on a CPU tensor it
+On a CUDA tensor the wrapper launches ``csrc/gat_round.cu`` (built and
+bound by ``ops/cuda_lib.py`` at first use) or raises; on a CPU tensor it
 runs :func:`gat_round_reference`, the same math in index ops. The kernel
 takes any 2-byte aligned ``xw`` and ``out``: it copies a graph's rows with
 one bulk copy where they are 16-byte aligned and in smaller pieces where
@@ -25,8 +25,8 @@ tensors and runs :func:`gat_round_backward_reference` on CPU tensors, and
 gives the JAX package's gradient, including its derivative of 1/2 where an
 edge's logit equals the softmax shift (``minimum`` at a tie). Its blocks take
 (graph, head) units from a counter of their own, allocated and zeroed the
-same way; ``gat_round_backward.counter`` keeps the last launch's, which ends
-holding the number of units handed out.
+same way, which ends holding the number of units handed out
+(:func:`_backward_launch` returns it beside the gradients).
 
 Both kernels launch on the current stream, so a CUDA graph can hold them
 (``train/graphs.py``). The libraries set a kernel's shared-memory attribute
@@ -34,10 +34,7 @@ and query its occupancy on the first eager launch at each size; a launch
 that would need either while its stream captures raises instead. Each
 launch counts itself where it runs: block 0 adds one to a 64-bit word of
 its kernel on its card, so a graph's replay, which runs no Python, counts
-its launches as eager calls do (:func:`launch_counts`,
-``cuda_lib.reset_launch_counts``). A replay also sets no Python attribute,
-so the step graphs point ``gat_round_backward.counter`` at the replayed
-graph's counter, which holds its count once the replay has run.
+its launches as eager calls do (``cuda_lib.launch_counts``).
 
 The wrapper takes each graph's edges as the dense packing lays them out
 (``core/packing.py:pack_graphs_dense``): the real edges first, sorted by
@@ -47,80 +44,29 @@ on the card the kernel's device assert stops it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
 from graphvqa_tpu_torch.ops import cuda_lib
-from graphvqa_tpu_torch.ops.dense import NEG_INF, SOFTMAX_EPS
+from graphvqa_tpu_torch.ops.cuda_lib import DTYPE_CODES, check_tensor
+from graphvqa_tpu_torch.ops.dense import (
+    NEG_INF, SOFTMAX_EPS, dense_edges, edges_dst_sorted)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SHIFTS = ("graph", "dst")
-
-
-class KernelLibrary:
-    """The GAT pair's libraries (``fwd``, ``bwd``) bound, and every kernel
-    library's paths, the build log and the build's wall time
-    (``cuda_lib.kernel_libraries``)."""
-
-    def __init__(self, built: cuda_lib.Built):
-        paths, self.log, self.build_seconds = built
-        self.paths = paths
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fwd = ctypes.CDLL(str(paths["gat_round"]))
-        fwd.gat_round_launch.argtypes = [ci] + [vp] * 14 + [ci] * 5 + [cf, ci, vp]
-        fwd.gat_round_launch.restype = ci
-        fwd.gat_round_smem_bytes.argtypes = [ci] * 5
-        fwd.gat_round_smem_bytes.restype = ctypes.c_size_t
-        bwd = ctypes.CDLL(str(paths["gat_round_backward"]))
-        bwd.gat_round_backward_launch.argtypes = (
-            [ci] + [vp] * 18 + [ci] * 5 + [cf, ci, vp])
-        bwd.gat_round_backward_launch.restype = ci
-        bwd.gat_round_backward_smem_bytes.argtypes = [ci] * 5
-        bwd.gat_round_backward_smem_bytes.restype = ctypes.c_size_t
-        self.fwd, self.bwd = fwd, bwd
-
-
-_library: Optional[KernelLibrary] = None
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the launchers of each direction's library: {function: (argtypes, restype)}
+_FORWARD = {
+    "gat_round_launch": ([_ci] + [_vp] * 14 + [_ci] * 5 + [_cf, _ci, _vp],
+                         _ci),
+    "gat_round_smem_bytes": ([_ci] * 5, ctypes.c_size_t)}
+_BACKWARD = {
+    "gat_round_backward_launch": (
+        [_ci] + [_vp] * 18 + [_ci] * 5 + [_cf, _ci, _vp], _ci),
+    "gat_round_backward_smem_bytes": ([_ci] * 5, ctypes.c_size_t)}
 # per device index: the shared memory a block may opt into; per (kernel, npg,
 # epg, H, C, dtype): the least the kernel needs. Both fixed for a process.
 _smem_limit: dict = {}
 _smem_need: dict = {}
-_KINDS = ("gat_round", "gat_round_backward")
-
-
-def load_library() -> KernelLibrary:
-    """Build the kernel sources (``cuda_lib.kernel_libraries``, once per
-    source content, in parallel) and load the GAT pair."""
-    global _library
-    if _library is None:
-        _library = KernelLibrary(cuda_lib.kernel_libraries())
-    return _library
-
-
-def _check(name, t, shape, dtypes, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _real_edges(dl, sl, mask, npg):
-    """[B, epg] bool: mask > 0 and both local indices inside [0, npg)."""
-    return ((mask > 0) & (dl >= 0) & (dl < npg) & (sl >= 0) & (sl < npg))
-
-
-def edges_dst_sorted(dl, sl, mask, npg) -> bool:
-    """True when every graph's real edges come first, sorted by destination,
-    and its padded edges last (the kernel's precondition)."""
-    real = _real_edges(dl, sl, mask, npg)
-    d = torch.where(real, dl, -1)
-    prev = d[:, :-1]
-    return not bool((real[:, 1:] & ((prev < 0) | (prev > d[:, 1:]))).any())
 
 
 def _edge_terms(dl, sl, mask, alpha_l, alpha_r, alpha_e, npg, epg,
@@ -135,11 +81,7 @@ def _edge_terms(dl, sl, mask, alpha_l, alpha_r, alpha_e, npg, epg,
     B = dl.shape[0]
     N, H = alpha_l.shape
     dev = alpha_l.device
-    base = (torch.arange(B, device=dev) * npg)[:, None]
-    dl64, sl64 = dl.long(), sl.long()
-    real = _real_edges(dl64, sl64, mask, npg).reshape(-1)
-    dst = torch.where(real, (dl64 + base).reshape(-1), 0)
-    src = torch.where(real, (sl64 + base).reshape(-1), 0)
+    real, src, dst = dense_edges(dl, sl, mask, npg)
     z = (alpha_l.float().index_select(0, src)
          + alpha_r.float().index_select(0, dst)) \
         + alpha_e.float().reshape(B * epg, H)
@@ -286,15 +228,6 @@ def _smem_check(kind, need_fn, key, dev):
                          f"allows {limit}")
 
 
-def launch_counts() -> tuple:
-    """(gat_round, gat_round_backward) launches on every card since the
-    last ``cuda_lib.reset_launch_counts()``, as the kernels counted them
-    where they ran: eager launches and those of CUDA graph replays alike.
-    Reads the cards, so it waits for the work queued on them; (0, 0) where
-    no kernel has launched (on the CPU, the plain versions run)."""
-    return cuda_lib.launch_counts(_KINDS)
-
-
 def _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
                        ins_value, keep_scale, npg, epg, shift,
                        shift_max=None):
@@ -307,19 +240,20 @@ def _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
     B = dl.shape[0]
     N, H, C = xw.shape
     dev = xw.device
-    _check("xw", xw, (B * npg, H, C), tuple(_DTYPES), dev)
-    _check("dl", dl, (B, epg), (torch.int32,), dev)
-    _check("sl", sl, (B, epg), (torch.int32,), dev)
-    _check("mask", mask, (B, epg), (torch.float32,), dev)
-    _check("alpha_l", alpha_l, (N, H), (torch.float32,), dev)
-    _check("alpha_r", alpha_r, (N, H), (torch.float32,), dev)
-    _check("alpha_e", alpha_e, (B, epg, H), (torch.float32,), dev)
+    f32 = (torch.float32,)
+    check_tensor("xw", xw, (B * npg, H, C), tuple(DTYPE_CODES), dev)
+    check_tensor("dl", dl, (B, epg), (torch.int32,), dev)
+    check_tensor("sl", sl, (B, epg), (torch.int32,), dev)
+    check_tensor("mask", mask, (B, epg), f32, dev)
+    check_tensor("alpha_l", alpha_l, (N, H), f32, dev)
+    check_tensor("alpha_r", alpha_r, (N, H), f32, dev)
+    check_tensor("alpha_e", alpha_e, (B, epg, H), f32, dev)
     if ins_value is not None:
-        _check("ins_value", ins_value, (B, H, C), (xw.dtype,), dev)
+        check_tensor("ins_value", ins_value, (B, H, C), (xw.dtype,), dev)
     if keep_scale is not None:
-        _check("keep_scale", keep_scale, (B, epg, H), (torch.float32,), dev)
+        check_tensor("keep_scale", keep_scale, (B, epg, H), f32, dev)
     if shift_max is not None:
-        _check("shift_max", shift_max, (B, H), (torch.float32,), dev)
+        check_tensor("shift_max", shift_max, (B, H), f32, dev)
 
 
 def _ptr(t):
@@ -346,10 +280,10 @@ def _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
     B = dl.shape[0]
     N, H, C = xw.shape
     dev = xw.device
-    lib = _library or load_library()
-    code = _DTYPES[xw.dtype]
+    lib = cuda_lib.bind("gat_round", _FORWARD)
+    code = DTYPE_CODES[xw.dtype]
     _smem_check("gat_round",
-                lambda: lib.fwd.gat_round_smem_bytes(npg, epg, H, C, code),
+                lambda: lib.gat_round_smem_bytes(npg, epg, H, C, code),
                 (npg, epg, H, C, code), dev)
     out = torch.empty((N, C), dtype=xw.dtype, device=dev)
     alpha = (torch.empty((B * epg, H), dtype=xw.dtype, device=dev)
@@ -363,7 +297,7 @@ def _forward(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
             _ptr(alpha), counter.data_ptr(),
             cuda_lib.launch_word("gat_round", dev).data_ptr(), B, npg, epg,
             H, C, float(negative_slope), int(shift == "graph"))
-    cuda_lib.launch(lib.fwd.gat_round_launch, args, dev, "gat_round")
+    cuda_lib.launch(lib.gat_round_launch, args, dev, "gat_round")
     return out, alpha
 
 
@@ -374,22 +308,34 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
     d_ins_value or None), as :func:`gat_round_backward_reference` documents.
 
     CUDA tensors launch ``csrc/gat_round_backward.cu`` (counted on the card,
-    :func:`launch_counts`); CPU tensors run the plain version."""
+    ``cuda_lib.launch_counts``); CPU tensors run the plain version."""
     if xw.device.type == "cpu":
         return gat_round_backward_reference(
             grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
             keep_scale, npg=npg, epg=epg, negative_slope=negative_slope,
             shift=shift, shift_max=shift_max)
+    return _backward_launch(
+        grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value,
+        keep_scale, npg=npg, epg=epg, negative_slope=negative_slope,
+        shift=shift, shift_max=shift_max)[0]
+
+
+def _backward_launch(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
+                     ins_value=None, keep_scale=None, *, npg, epg,
+                     negative_slope=0.2, shift="graph", shift_max=None):
+    """:func:`gat_round_backward`'s kernel launch on CUDA tensors, with its
+    arguments -> (the gradients, the launch's (graph, head) work counter,
+    which holds the number of units handed out once the launch has run)."""
     _check_cuda_inputs(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
                        ins_value, keep_scale, npg, epg, shift, shift_max)
     B = dl.shape[0]
     N, H, C = xw.shape
     dev = xw.device
-    _check("grad_out", grad_out, (N, C), (xw.dtype,), dev)
-    lib = _library or load_library()
-    code = _DTYPES[xw.dtype]
+    check_tensor("grad_out", grad_out, (N, C), (xw.dtype,), dev)
+    lib = cuda_lib.bind("gat_round_backward", _BACKWARD)
+    code = DTYPE_CODES[xw.dtype]
     _smem_check("gat_round_backward",
-                lambda: lib.bwd.gat_round_backward_smem_bytes(
+                lambda: lib.gat_round_backward_smem_bytes(
                     npg, epg, H, C, code),
                 (npg, epg, H, C, code), dev)
     d_xw = torch.empty_like(xw)
@@ -398,7 +344,7 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
     d_ae = torch.empty((B, epg, H), dtype=torch.float32, device=dev)
     d_ins = None if ins_value is None else torch.empty_like(ins_value)
     # the kernel's (graph, head) work counter, which the library zeroes on
-    # the stream; it ends holding the number of units handed out
+    # the stream
     counter = torch.empty(1, dtype=torch.int32, device=dev)
     args = (code, dl.data_ptr(), sl.data_ptr(), mask.data_ptr(),
             alpha_l.data_ptr(), alpha_r.data_ptr(), alpha_e.data_ptr(),
@@ -408,14 +354,9 @@ def gat_round_backward(grad_out, dl, sl, mask, alpha_l, alpha_r, alpha_e, xw,
             counter.data_ptr(),
             cuda_lib.launch_word("gat_round_backward", dev).data_ptr(), B,
             npg, epg, H, C, float(negative_slope), int(shift == "graph"))
-    cuda_lib.launch(lib.bwd.gat_round_backward_launch, args, dev,
+    cuda_lib.launch(lib.gat_round_backward_launch, args, dev,
                     "gat_round_backward")
-    gat_round_backward.counter = counter
-    return d_xw, d_al, d_ar, d_ae, d_ins
-
-
-# the last launch's work counter (None before the first launch)
-gat_round_backward.counter = None
+    return (d_xw, d_al, d_ar, d_ae, d_ins), counter
 
 
 class GATRoundFunction(torch.autograd.Function):
@@ -458,7 +399,7 @@ def gat_round(dl, sl, mask, alpha_l, alpha_r, alpha_e, xw, ins_value=None,
     with ``return_alpha`` also the attention [B*epg, H] (no gradient).
 
     CUDA tensors launch the kernel (counted on the card,
-    :func:`launch_counts`); CPU tensors run :func:`gat_round_reference`.
+    ``cuda_lib.launch_counts``); CPU tensors run :func:`gat_round_reference`.
     When a float input requires grad, the call goes through
     :class:`GATRoundFunction`, whose backward is the backward kernel (or its
     plain version on the CPU). ``alpha_e`` is cast to float32 here;

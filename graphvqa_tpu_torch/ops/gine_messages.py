@@ -58,22 +58,24 @@ stops them on edges in another order. Both build with the port's other
 kernels (``ops/cuda_lib.py``), launch on the current stream and set their
 shared-memory attribute on an eager launch only, so the step graphs
 (``train/graphs.py``) replay them. Each launch counts itself on the card
-(:func:`launch_counts`).
+(``cuda_lib.launch_counts``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
 from graphvqa_tpu_torch.ops import cuda_lib
-from graphvqa_tpu_torch.ops.gat_round import _check, edges_dst_sorted
+from graphvqa_tpu_torch.ops.cuda_lib import DTYPE_CODES, check_tensor
+from graphvqa_tpu_torch.ops.dense import dense_edges, edges_dst_sorted
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KINDS = ("gine_messages", "gine_messages_backward")
-
-_lib: Optional[tuple] = None
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# each direction's launcher: {function: (argtypes, restype)}
+_FORWARD = {"gine_messages_launch": ([_ci] * 3 + [_vp] * 8 + [_ci] * 5
+                                     + [_vp], _ci)}
+_BACKWARD = {"gine_messages_backward_launch": ([_ci] * 3 + [_vp] * 11
+                                               + [_ci] * 5 + [_vp], _ci)}
 
 
 def messages_dtype(h: torch.Tensor, ins: torch.Tensor,
@@ -82,19 +84,6 @@ def messages_dtype(h: torch.Tensor, ins: torch.Tensor,
     ``[edge_attr ; ins]`` promoted, then their sum promoted."""
     p = torch.promote_types
     return p(p(h.dtype, ins.dtype), p(edge_attr.dtype, ins.dtype))
-
-
-def _edges(dl, sl, mask, npg):
-    """(real [E] bool, src, dst [E] global rows; 0 on padded edges) of the
-    dense layout's [B, epg] local indices and mask."""
-    B = dl.shape[0]
-    dl64, sl64 = dl.long(), sl.long()
-    real = ((mask > 0) & (dl64 >= 0) & (dl64 < npg) & (sl64 >= 0)
-            & (sl64 < npg)).reshape(-1)
-    base = (torch.arange(B, device=dl.device) * npg)[:, None]
-    src = torch.where(real, (sl64 + base).reshape(-1), 0)
-    dst = torch.where(real, (dl64 + base).reshape(-1), 0)
-    return real, src, dst
 
 
 def _check_order(dl, sl, mask, npg):
@@ -114,7 +103,7 @@ def gine_messages_reference(h, ins, edge_attr, dl, sl, mask, *, npg):
     B = dl.shape[0]
     N, C = h.shape
     dt = messages_dtype(h, ins, edge_attr)
-    real, src, dst = _edges(dl, sl, mask, npg)
+    real, src, dst = dense_edges(dl, sl, mask, npg)
     pre = h.index_select(0, src).to(dt) + edge_attr.to(dt)
     msg = torch.where(real[:, None], torch.relu(pre), 0.0).float()
     acc = torch.zeros(N, C, device=h.device).index_add(0, dst, msg)
@@ -138,7 +127,7 @@ def gine_messages_backward_reference(dz, h, ins, edge_attr, dl, sl, mask, *,
     D = ins.shape[-1]
     dt = messages_dtype(h, ins, edge_attr)
     with torch.no_grad():
-        real, src, dst = _edges(dl, sl, mask, npg)
+        real, src, dst = dense_edges(dl, sl, mask, npg)
         pre = h.index_select(0, src).to(dt) + edge_attr.to(dt)
         dzc = dz[:, :C]
         g = torch.where(real[:, None] & (pre > 0), dzc.index_select(0, dst),
@@ -152,25 +141,6 @@ def gine_messages_backward_reference(dz, h, ins, edge_attr, dl, sl, mask, *,
     return dh, g.to(edge_attr.dtype), d_ins.to(ins.dtype)
 
 
-def _library() -> tuple:
-    """The pair's libraries (forward, backward), built with the port's
-    other kernels and bound."""
-    global _lib
-    if _lib is None:
-        paths = cuda_lib.kernel_libraries().paths
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fwd = ctypes.CDLL(str(paths["gine_messages"]))
-        fwd.gine_messages_launch.argtypes = (
-            [ci] * 3 + [vp] * 8 + [ci] * 5 + [vp])
-        fwd.gine_messages_launch.restype = ci
-        bwd = ctypes.CDLL(str(paths["gine_messages_backward"]))
-        bwd.gine_messages_backward_launch.argtypes = (
-            [ci] * 3 + [vp] * 11 + [ci] * 5 + [vp])
-        bwd.gine_messages_backward_launch.restype = ci
-        _lib = (fwd, bwd)
-    return _lib
-
-
 def _check_cuda_inputs(h, ins, edge_attr, dl, sl, mask, npg):
     """The kernels' contract; ins must already be in the messages' dtype."""
     dev = h.device
@@ -178,20 +148,22 @@ def _check_cuda_inputs(h, ins, edge_attr, dl, sl, mask, npg):
         raise ValueError(f"gine_messages runs on cuda or cpu, not {dev}")
     B, epg = dl.shape
     C, D = h.shape[-1], ins.shape[-1]
-    floats = tuple(_DTYPES)
-    _check("h", h, (B * npg, C), floats, dev)
-    _check("edge_attr", edge_attr, (B * epg, C), floats, dev)
-    _check("ins", ins, (B, D), (messages_dtype(h, ins, edge_attr),), dev)
-    _check("dl", dl, (B, epg), (torch.int32,), dev)
-    _check("sl", sl, (B, epg), (torch.int32,), dev)
-    _check("mask", mask, (B, epg), (torch.bool,), dev)
+    floats = tuple(DTYPE_CODES)
+    check_tensor("h", h, (B * npg, C), floats, dev)
+    check_tensor("edge_attr", edge_attr, (B * epg, C), floats, dev)
+    check_tensor("ins", ins, (B, D), (messages_dtype(h, ins, edge_attr),),
+                 dev)
+    check_tensor("dl", dl, (B, epg), (torch.int32,), dev)
+    check_tensor("sl", sl, (B, epg), (torch.int32,), dev)
+    check_tensor("mask", mask, (B, epg), (torch.bool,), dev)
     if min(B, npg, epg, C, D) < 1:
         raise ValueError(f"gine_messages needs B, npg, epg, C, D >= 1, got "
                          f"{(B, npg, epg, C, D)}")
 
 
 def _codes(h, ins, edge_attr):
-    return _DTYPES[h.dtype], _DTYPES[edge_attr.dtype], _DTYPES[ins.dtype]
+    return (DTYPE_CODES[h.dtype], DTYPE_CODES[edge_attr.dtype],
+            DTYPE_CODES[ins.dtype])
 
 
 def _forward(h, ins, edge_attr, dl, sl, mask, npg):
@@ -210,8 +182,8 @@ def _forward(h, ins, edge_attr, dl, sl, mask, npg):
             edge_attr.data_ptr(), z.data_ptr(),
             cuda_lib.launch_word("gine_messages", dev).data_ptr(),
             B, npg, epg, C, D)
-    cuda_lib.launch(_library()[0].gine_messages_launch, args, dev,
-                    "gine_messages")
+    cuda_lib.launch(cuda_lib.bind("gine_messages", _FORWARD)
+                    .gine_messages_launch, args, dev, "gine_messages")
     return z
 
 
@@ -219,7 +191,7 @@ def gine_messages_backward(dz, h, ins, edge_attr, dl, sl, mask, *, npg):
     """The vjp -> (dh, d_edge_attr, d_ins), as
     :func:`gine_messages_backward_reference` documents: the backward kernel
     on CUDA tensors (ins and dz in the messages' dtype; counted on the card,
-    :func:`launch_counts`), the plain version on CPU tensors."""
+    ``cuda_lib.launch_counts``), the plain version on CPU tensors."""
     if h.device.type == "cpu":
         return gine_messages_backward_reference(dz, h, ins, edge_attr, dl,
                                                 sl, mask, npg=npg)
@@ -227,7 +199,7 @@ def gine_messages_backward(dz, h, ins, edge_attr, dl, sl, mask, *, npg):
     B, epg = dl.shape
     C, D = h.shape[-1], ins.shape[-1]
     dev = h.device
-    _check("dz", dz, (B * npg, C + D), (ins.dtype,), dev)
+    check_tensor("dz", dz, (B * npg, C + D), (ins.dtype,), dev)
     dh = torch.empty_like(h)
     d_edge = torch.empty_like(edge_attr)
     d_ins = torch.empty_like(ins)
@@ -237,7 +209,8 @@ def gine_messages_backward(dz, h, ins, edge_attr, dl, sl, mask, *, npg):
             d_edge.data_ptr(), d_ins.data_ptr(),
             cuda_lib.launch_word("gine_messages_backward", dev).data_ptr(),
             B, npg, epg, C, D)
-    cuda_lib.launch(_library()[1].gine_messages_backward_launch, args, dev,
+    cuda_lib.launch(cuda_lib.bind("gine_messages_backward", _BACKWARD)
+                    .gine_messages_backward_launch, args, dev,
                     "gine_messages_backward")
     return dh, d_edge, d_ins
 
@@ -278,11 +251,3 @@ def gine_messages(h, ins, edge_attr, dl, sl, mask, *, npg):
     if torch.is_grad_enabled() and any(t.requires_grad for t in args[:3]):
         return GINEMessagesFunction.apply(*args)
     return _forward(*args)
-
-
-def launch_counts() -> tuple:
-    """(gine_messages, gine_messages_backward) launches on every card since
-    the last ``cuda_lib.reset_launch_counts()``, as the kernels counted them
-    where they ran (CUDA graph replays too). Reads the cards; (0, 0) where
-    no kernel has launched (on the CPU the plain versions run)."""
-    return cuda_lib.launch_counts(_KINDS)

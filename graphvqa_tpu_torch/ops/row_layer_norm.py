@@ -19,25 +19,28 @@ either, any row count from 1 and widths up to 1,024, contiguous rows.
 The library builds with the other kernels (``ops/cuda_lib.py``, one nvcc
 per source, in parallel); its launchers pick the kernel's variant and grid
 from the dtypes, the width and the pointers' alignment. Each forward and
-backward launch counts itself on the card (:func:`launch_counts`; a CUDA
-graph's replay counts its launches; ``cuda_lib.reset_launch_counts`` zeroes
-the counts).
+backward launch counts itself on the card (``cuda_lib.launch_counts``; a
+CUDA graph's replay counts its launches).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
 
 import torch
 
 from graphvqa_tpu_torch.ops import cuda_lib
+from graphvqa_tpu_torch.ops.cuda_lib import DTYPE_CODES
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KINDS = ("layer_norm", "layer_norm_backward")
 # the widest row the kernels take (csrc/layer_norm.cu: kMaxD)
 _MAX_WIDTH = 1024
-
-_lib: Optional[ctypes.CDLL] = None
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the library's launchers: {function: (argtypes, restype)}
+_LAUNCHERS = {
+    "layer_norm_forward_launch": ([_ci] * 2 + [_vp] * 5
+                                  + [_ci, _ci, _cf, _vp, _vp], _ci),
+    "layer_norm_backward_blocks": ([_ci], _ci),
+    "layer_norm_backward_launch": ([_ci] * 2 + [_vp] * 8 + [_ci] * 3
+                                   + [_vp, _vp], _ci)}
 
 
 def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -51,28 +54,10 @@ def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return y.to(dtype)
 
 
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(
-            cuda_lib.kernel_libraries().paths["layer_norm"]))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.layer_norm_forward_launch.argtypes = (
-            [ci] * 2 + [vp] * 5 + [ci, ci, cf, vp, vp])
-        lib.layer_norm_forward_launch.restype = ci
-        lib.layer_norm_backward_blocks.argtypes = [ci]
-        lib.layer_norm_backward_blocks.restype = ci
-        lib.layer_norm_backward_launch.argtypes = (
-            [ci] * 2 + [vp] * 8 + [ci] * 3 + [vp, vp])
-        lib.layer_norm_backward_launch.restype = ci
-        _lib = lib
-    return _lib
-
-
 def _check_rows(name: str, t: torch.Tensor) -> None:
-    if t.dtype not in _DTYPES:
+    if t.dtype not in DTYPE_CODES:
         raise TypeError(f"{name} has dtype {t.dtype}, expected one of "
-                        f"{tuple(_DTYPES)}")
+                        f"{tuple(DTYPE_CODES)}")
     if t.ndim < 1 or t.numel() == 0:
         raise ValueError(f"{name} must hold at least one row, got shape "
                          f"{tuple(t.shape)}")
@@ -110,9 +95,9 @@ def layer_norm_forward(x: torch.Tensor, weight: torch.Tensor,
     ``keep_stats`` the statistics [rows, 2] f32 for the backward: the mean
     and rstd, rstd negated where the clamp was active; else None)."""
     _check_rows("x", x)
-    if dtype not in _DTYPES:
+    if dtype not in DTYPE_CODES:
         raise TypeError(f"output dtype {dtype}, expected one of "
-                        f"{tuple(_DTYPES)}")
+                        f"{tuple(DTYPE_CODES)}")
     d, dev = x.shape[-1], x.device
     _check_vector("weight", weight, d)
     _check_vector("bias", bias, d)
@@ -121,12 +106,12 @@ def layer_norm_forward(x: torch.Tensor, weight: torch.Tensor,
     rows = x.numel() // d
     stats = (torch.empty((rows, 2), dtype=torch.float32, device=dev)
              if keep_stats else None)
-    args = (_DTYPES[x.dtype], _DTYPES[dtype], x.data_ptr(),
+    args = (DTYPE_CODES[x.dtype], DTYPE_CODES[dtype], x.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
             None if stats is None else stats.data_ptr(), rows, d, float(eps),
             cuda_lib.launch_word("layer_norm", dev).data_ptr())
-    cuda_lib.launch(_library().layer_norm_forward_launch, args, dev,
-                    "layer_norm")
+    cuda_lib.launch(cuda_lib.bind("layer_norm", _LAUNCHERS)
+                    .layer_norm_forward_launch, args, dev, "layer_norm")
     return y, stats
 
 
@@ -147,7 +132,7 @@ def layer_norm_backward(dy: torch.Tensor, x: torch.Tensor,
             or not stats.is_contiguous()):
         raise ValueError(f"stats must be float32 [{rows}, 2], contiguous")
     _check_devices(x, dy, weight, stats)
-    lib = _library()
+    lib = cuda_lib.bind("layer_norm", _LAUNCHERS)
     blocks = cuda_lib.on_device(dev, lib.layer_norm_backward_blocks, rows)
     if blocks < 1:
         raise RuntimeError(f"layer_norm_backward found no grid for {rows} "
@@ -156,8 +141,8 @@ def layer_norm_backward(dy: torch.Tensor, x: torch.Tensor,
     partial = torch.empty((blocks, 2, d), dtype=torch.float32, device=dev)
     dweight = torch.empty(d, dtype=torch.float32, device=dev)
     dbias = torch.empty_like(dweight)
-    args = (_DTYPES[x.dtype], _DTYPES[dy.dtype], dy.data_ptr(), x.data_ptr(),
-            weight.data_ptr(), stats.data_ptr(), dx.data_ptr(),
+    args = (DTYPE_CODES[x.dtype], DTYPE_CODES[dy.dtype], dy.data_ptr(),
+            x.data_ptr(), weight.data_ptr(), stats.data_ptr(), dx.data_ptr(),
             partial.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), rows,
             d, blocks,
             cuda_lib.launch_word("layer_norm_backward", dev).data_ptr())
@@ -196,11 +181,3 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             t.requires_grad for t in (x, weight, bias)):
         return LayerNormFunction.apply(x, weight, bias, eps, dtype)
     return layer_norm_forward(x, weight, bias, eps, dtype)[0]
-
-
-def launch_counts() -> tuple:
-    """(layer_norm, layer_norm_backward) launches on every card since the
-    last ``cuda_lib.reset_launch_counts()``, as the kernels counted them
-    where they ran (CUDA graph replays too). Reads the cards; (0, 0) where
-    no kernel has launched (on the CPU the plain twin runs)."""
-    return cuda_lib.launch_counts(_KINDS)

@@ -8,7 +8,8 @@ dtypes and static sizes (:func:`batch_key`):
 
 * the first call at a key runs the body eagerly on a side stream. This
   warm-up is a real step, and it sets up what is made lazily outside any
-  capture: cuBLAS workspaces and the GAT kernels' shared-memory attributes;
+  capture: cuBLAS workspaces and the hand-written kernels' shared-memory
+  attributes;
 * the second call copies the batch into static tensors, captures the body
   over them into a CUDA graph (a chain of them where the body reaches the
   host, below) and replays it once;
@@ -40,10 +41,9 @@ them before that.
 (``chip_smoke.py`` phase 14 holds the main rung's replays, interleaved
 with the bumped rung's, to the eager step.)
 
-The GAT kernels count their launches on the card (``ops/gat_round.py``),
-so replays count as eager calls do. A replay runs no Python, so
-``gat_round_backward.counter`` is pointed at the replayed graph's counter,
-to be read after the replay.
+The hand-written kernels count their launches on the card
+(``ops/cuda_lib.py``), so replays count as eager calls do, and this module
+knows no kernel.
 
 A step reaches the host where it runs a collective that no graph can
 hold: the data-parallel step's all-reduce (``parallel/data_parallel.py``)
@@ -291,14 +291,12 @@ def _tensors(obj) -> list:
 
 @dataclasses.dataclass
 class _Graph:
-    """One key's graphs: its static batch, the replay of its chain, its
-    host calls' buffers and count (from the warm-up) and its backward
-    kernel's counter."""
+    """One key's graphs: its static batch, the replay of its chain, and its
+    host calls' buffers and count (from the warm-up)."""
     static: Any = None
     replay: Optional[Callable] = None
     buffers: list = dataclasses.field(default_factory=list)
     host_calls: int = 0
-    backward_counter: Optional[torch.Tensor] = None
 
 
 class StepGraphs:
@@ -333,9 +331,6 @@ class StepGraphs:
             return self._call(body, batch, generators, bind)
 
     def _call(self, body, batch, generators, bind):
-        # imported here: ops imports parallel.collectives, which imports
-        # this module
-        from graphvqa_tpu_torch.ops import gat_round as gr
         generators = tuple(g for g in generators if g is not None)
         bound = tuple(bind) + generators
         traced = profiling.enabled()
@@ -362,8 +357,6 @@ class StepGraphs:
         with profiling.span("gvqa.step.replay"):
             out = entry.replay()
         self.replays += 1
-        if entry.backward_counter is not None:
-            gr.gat_round_backward.counter = entry.backward_counter
         return out
 
     def _warm_up(self, entry, body, batch):
@@ -382,9 +375,7 @@ class StepGraphs:
         return out
 
     def _capture(self, entry, key, body, batch, generators):
-        from graphvqa_tpu_torch.ops import gat_round as gr
         entry.static = map_tensors(torch.clone, batch)
-        counter = gr.gat_round_backward.counter
         cuts = []
 
         def run(cut):
@@ -404,5 +395,3 @@ class StepGraphs:
         self.capture_seconds[key] = time.perf_counter() - t0
         self.segments[key] = entry.host_calls + 1
         self.captures += 1
-        if gr.gat_round_backward.counter is not counter:
-            entry.backward_counter = gr.gat_round_backward.counter

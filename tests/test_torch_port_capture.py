@@ -27,7 +27,9 @@ what can be checked of them on the CPU:
 The card's own check of capture against the eager step is
 ``tests/test_torch_port_cuda.py`` and ``chip_smoke.py`` phase 14.
 """
+import ast
 import dataclasses
+import pathlib
 import traceback
 
 import jax
@@ -38,6 +40,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import graphvqa_tpu_torch.config as pcfg
+import graphvqa_tpu_torch.train.graphs as graphs_module
 import graphvqa_tpu_torch.train.loop as loop
 from graphvqa_tpu.config import Config as JaxConfig
 from graphvqa_tpu.config import TrainConfig as JaxTrainConfig
@@ -106,7 +109,7 @@ _READS = {"aten._local_scalar_dense.default", "aten.is_nonzero.default",
 class NoReadBack(TorchDispatchMode):
     """Raises on every op a CUDA graph cannot hold because it reads the
     device back (or has a data-dependent shape), naming the op and the
-    port's line. One read is allowed: ``ops/gat_round.py``'s
+    port's line. One read is allowed: ``ops/dense.py``'s
     ``edges_dst_sorted``, the CPU plain version's check of the kernel's
     edge order, which reads host tensors and which the CUDA path never
     runs (the kernel asserts the order on the device)."""
@@ -373,6 +376,17 @@ def test_one_graph_per_batch_key_and_an_eager_warm_up(monkeypatch):
     assert int(state.opt_state["count"]) == 6
     for (n, p), q in zip(model.named_parameters(), ref_model.parameters()):
         assert torch.equal(p, q), n
+    # the cache knows no kernel: graphs.py imports nothing from ops (read
+    # from its source, as other tests have loaded ops already)
+    imported = []
+    for node in ast.walk(ast.parse(
+            pathlib.Path(graphs_module.__file__).read_text())):
+        if isinstance(node, ast.ImportFrom):
+            imported += [f"{node.module}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+    assert not [name for name in imported
+                if name.startswith("graphvqa_tpu_torch.ops")], imported
 
 
 def test_a_new_state_or_generator_drops_the_graphs(monkeypatch):

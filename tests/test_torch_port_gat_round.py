@@ -20,9 +20,10 @@ from graphvqa_tpu.core import GraphSample as JaxGraphSample
 from graphvqa_tpu.core import pack_graphs_dense as jax_pack_graphs_dense
 from graphvqa_tpu.ops.pallas.fused_dense_gat import pallas_fused_dense_gat
 from graphvqa_tpu_torch.core.packing import GraphSample, pack_graphs_dense
-from graphvqa_tpu_torch.ops.dense import dense_local_indices
-from graphvqa_tpu_torch.ops.gat_round import (
-    edges_dst_sorted, gat_round, gat_round_reference, launch_counts)
+from graphvqa_tpu_torch.ops.cuda_lib import KINDS, launch_counts
+from graphvqa_tpu_torch.ops.dense import (
+    dense_local_indices, edges_dst_sorted)
+from graphvqa_tpu_torch.ops.gat_round import gat_round, gat_round_reference
 from tests.torch_port_helpers import port_graph
 
 RUNGS = [(8, 16), (64, 256)]
@@ -137,7 +138,8 @@ def test_wrapper_runs_plain_version_on_cpu_only():
     got = gat_round(*args, npg=8, epg=16)
     want = gat_round_reference(*args, npg=8, epg=16)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert launch_counts() == before == (0, 0)   # no kernel on the CPU
+    # no kernel on the CPU
+    assert launch_counts() == before == dict.fromkeys(KINDS, 0)
     meta = [t.to("meta") for t in args]
     with pytest.raises(ValueError, match="cuda or cpu"):
         gat_round(*meta, npg=8, epg=16)

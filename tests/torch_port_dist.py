@@ -146,7 +146,7 @@ def _cpu(t):
 
 def _train(case, dev):
     from graphvqa_tpu_torch.core import profiling
-    from graphvqa_tpu_torch.ops.gat_round import launch_counts
+    from graphvqa_tpu_torch.ops.cuda_lib import launch_counts
     from graphvqa_tpu_torch.parallel.edge_sharded import (
         make_dp_edge_train_step, prepare_dp_edge_batch)
     from graphvqa_tpu_torch.parallel.mesh import data_seed, make_mesh
@@ -199,7 +199,8 @@ def _train(case, dev):
         metrics=calls[-1], call_metrics=calls,
         all_reduces=[len(r) for r in reduces], reduce_calls=reduces,
         epg_loc=[b.graphs.edges_per_graph for b in batches],
-        launches=tuple(n - b for n, b in zip(launch_counts(), before)),
+        launches={kind: n - before[kind]
+                  for kind, n in launch_counts().items()},
         device_segments=segments, **graph_record(graphs))
 
 
