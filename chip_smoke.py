@@ -5,9 +5,10 @@
 
 Phases, in order; any failure exits non-zero:
   1. build    nvcc builds csrc/gat_round.cu, csrc/gat_round_backward.cu,
-              csrc/layer_norm.cu, csrc/gine_messages.cu and
-              csrc/gine_messages_backward.cu for sm_90a (first use, one
-              nvcc per source, in parallel)
+              csrc/layer_norm.cu, csrc/gine_messages.cu,
+              csrc/gine_messages_backward.cu, csrc/lcgn_linear.cu and
+              csrc/lcgn_linear_backward.cu for sm_90a (first use, one nvcc
+              per source, in parallel)
   2. kernel   the GAT-round kernel against its plain PyTorch version at the
               main path's shapes (B=512, npg=64, epg=256, H=4, C=300) on
               GQA-shaped random graphs: both softmax shifts, with and without
@@ -179,6 +180,22 @@ Phases, in order; any failure exits non-zero:
               above that runs a model holds the pair's launches to
               step_launches: 5 a gine eval request, 5 + 5 a gine train
               step, 0 on every other family
+ 17. lcgn     LCGN's node-wise float32 linear pair (ops/lcgn_linear.py) at
+              the lcgn cell's shapes (B=200 at npg 64 and 128; 300, 512,
+              1,024 and 1,536 -> 512 and the stacked 1,536 -> 1,536) on
+              masks drawn from the traffic's scene law: the row list
+              against its plain twin; forward, dx, dW and db against the
+              plain versions on the card within the float32 round-off
+              bound, padding rows 0, two runs bit for bit, one launch each
+              counted on the card; each kernel's device time (cold L2)
+              beside its bound (real-row FLOPs at 67 TFLOP/s or bytes at
+              3.35 TB/s, the larger), the plain versions' time and
+              F.linear's over every padded row (library_ms), the share of
+              rows computed and the sums over one train step's 15 linears.
+              Every phase above that runs a model holds the row list's and
+              the pair's launches to step_launches: 1 and 15 an lcgn eval
+              request, 1, 15 and 15 an lcgn train step, 0 on every other
+              family
 
 Each phase's seconds print as "[seconds] phase N".
 
@@ -718,6 +735,16 @@ def gine_rounds(cfg):
     return e.num_rounds if e.kind == "gine" else 0
 
 
+def lcgn_linears(cfg):
+    """(row lists, linears) of one forward of a config: on lcgn one row list
+    and init_sg_emb_input, proj_x_loc and fin_layer, then proj_x_ctx,
+    lin_l/lin_r/cal_x (one launch) and output_layer per iteration, on any
+    layout; none on the other engines. A train step's backward launches
+    once per linear."""
+    e = cfg.model.engine
+    return (1, 3 + 3 * e.lcgn_iters) if e.kind == "lcgn" else (0, 0)
+
+
 def kernel_launches(**counts):
     """{kind: launches} for every kind the kernels count, in
     ``ops/cuda_lib.py:KINDS``'s order; 0 where not given."""
@@ -738,13 +765,16 @@ def step_launches(cfg, train):
     config on a dense batch."""
     rounds, gine = gat_rounds(cfg), gine_rounds(cfg)
     fwd, bwd, ev = layer_norm_launches(cfg)
+    lists, linears = lcgn_linears(cfg)
     if train:
         return kernel_launches(
             gat_round=rounds, gat_round_backward=rounds, layer_norm=fwd,
             layer_norm_backward=bwd, gine_messages=gine,
-            gine_messages_backward=gine)
+            gine_messages_backward=gine, lcgn_rows=lists,
+            lcgn_linear=linears, lcgn_linear_backward=linears)
     return kernel_launches(gat_round=rounds, layer_norm=ev,
-                           gine_messages=gine)
+                           gine_messages=gine, lcgn_rows=lists,
+                           lcgn_linear=linears)
 
 
 def launch_counts():
@@ -1549,7 +1579,10 @@ def phase_families(dev, data):
             layer_norm=serve["layer_norm"] + train["layer_norm"],
             layer_norm_backward=train["layer_norm_backward"],
             gine_messages=serve["gine_messages"] + train["gine_messages"],
-            gine_messages_backward=train["gine_messages_backward"])
+            gine_messages_backward=train["gine_messages_backward"],
+            lcgn_rows=serve["lcgn_rows"] + train["lcgn_rows"],
+            lcgn_linear=serve["lcgn_linear"] + train["lcgn_linear"],
+            lcgn_linear_backward=train["lcgn_linear_backward"])
         log(f"[{tag}] launches: serve {launch_text(serve)} (3 requests), "
             f"train {launch_text(train)} (3 steps); "
             f"{time.perf_counter() - t0:.1f}s")
@@ -1576,12 +1609,10 @@ def phase_cli_lcgn(data):
     if not losses or not all(map(math.isfinite, losses)):
         fail(f"lcgn CLI: training losses {losses}")
     tr = cli_launches(stdout, "train epoch 0")
-    ln_fwd, ln_bwd, _ = layer_norm_launches(family_config("lcgn"))
-    if tr != kernel_launches(layer_norm=ln_fwd * 2,
-                             layer_norm_backward=ln_bwd * 2):
+    want = step_launches(family_config("lcgn"), train=True)
+    if tr != scaled(want, 2):
         fail(f"lcgn CLI: {launch_text(tr)} launches in 2 steps, expected "
-             f"no GAT kernel, layer_norm {ln_fwd} and layer_norm_backward "
-             f"{ln_bwd} per step")
+             f"{launch_text(want)} per step")
     res = _last_match(r"val_balanced (\{.*'bitmap_recall'.*\})", stdout,
                       "validation result with the bitmap meters")
     qa_s = _last_match(r"epoch sustained: ([\d.]+) qa/s", stdout,
@@ -3627,6 +3658,186 @@ def gine_summary(kind, phase, families):
                              for n in GINE_DTYPES}}
 
 
+# --- phase 17: LCGN's node-wise float32 linears --------------------------------
+
+LCGN_B = 200
+# (in, out, bias) of LCGN's node-wise linears and how many run a forward at
+# lcgn_iters 4: init_sg_emb_input; proj_x_loc and proj_x_ctx; lin_l / lin_r
+# / cal_x stacked; output_layer and fin_layer
+LCGN_LINEARS = {(300, 512, True): 1, (512, 512, True): 5,
+                (1536, 1536, False): 4, (1024, 512, True): 5}
+LCGN_NPG = (64, 128)
+
+
+def lcgn_bound_ms(real, N, K, Nout, bias, backward):
+    """(least ms, bound by): the real rows' multiply-adds at the float32
+    peak, or the bytes at 3.35 TB/s, whichever is larger. Bytes: the row
+    list read; forward x's real rows, W and b read once, every y row
+    written (the padding rows' zeros are part of the result); backward
+    dy's and x's real rows and W read once, every dx row, dW and db
+    written."""
+    flops = 2 * real * K * Nout * (2 if backward else 1)
+    rows = 4 * N + 4
+    if backward:
+        nbytes = rows + 4 * (real * (Nout + K) + Nout * K + N * K
+                             + Nout * K + Nout * bias)
+    else:
+        nbytes = rows + 4 * (real * K + Nout * K + Nout * bias + N * Nout)
+    t_flops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_flops, t_bytes) * 1e3,
+            "flops" if t_flops >= t_bytes else "bytes")
+
+
+def phase_lcgn(dev):
+    """Phase 17: LCGN's linear pair (ops/lcgn_linear.py) at the lcgn cell's
+    shapes (B=200 at npg 64 and 128, every (in, out) of LCGN_LINEARS) on
+    masks drawn from the traffic's scene law: the row list against its
+    plain twin; forward and backward against the plain versions on the
+    card within the float32 round-off bound (2 n 2^-24 of the sum of the
+    terms' magnitudes), the padding rows 0, two runs bit for bit, one
+    launch of each counted on the card; then each kernel's device time
+    (cold L2) beside its bound, the plain versions' time (CUDA events) and
+    F.linear's over every padded row (cold L2; backward: autograd's dx and
+    dW through it); the share of rows computed, and the sums over one
+    train step's linears at npg 64."""
+    import torch
+    from graphvqa_tpu_torch.ops import lcgn_linear as ll
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    from torch_port_fixtures import round_off_share, scene_law_mask
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    timing, worst, shares = {}, {}, {}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def within(got, want, n, scale, what):
+        share = round_off_share(got, want, n, scale)
+        if share > 1.0:
+            fail(f"lcgn {what}: {share:.3f} of its round-off bound")
+        worst[what.split()[0]] = max(worst.get(what.split()[0], 0.0), share)
+
+    for npg in LCGN_NPG:
+        mask = scene_law_mask(LCGN_B, npg, seed=npg).to(dev)
+        N = mask.shape[0]
+        f0 = launch_counts()
+        rows = ll.node_rows(mask)
+        perm, count = ll.node_rows_reference(mask)
+        torch.cuda.synchronize()
+        if launches_since(f0)["lcgn_rows"] != 1:
+            fail("lcgn: the row list did not count its launch")
+        if not (torch.equal(rows.perm, perm) and torch.equal(rows.count,
+                                                            count)):
+            fail(f"lcgn: the row list at npg {npg} is not its plain twin's")
+        real = int(count)
+        shares[npg] = real / N
+        m = mask[:, None]
+        for (K, Nout, bias), _ in LCGN_LINEARS.items():
+            x, w = randn(N, K), randn(Nout, K) / K ** 0.5
+            b = randn(Nout) if bias else None
+            dy = randn(N, Nout)
+            f0 = launch_counts()
+            y = ll.lcgn_linear(x, w, b, rows)
+            grads = ll.lcgn_linear_backward(dy, x, w, rows.perm, rows.count,
+                                            has_bias=bias)
+            y2 = ll.lcgn_linear(x, w, b, rows)
+            grads2 = ll.lcgn_linear_backward(dy, x, w, rows.perm, rows.count,
+                                             has_bias=bias)
+            torch.cuda.synchronize()
+            since = launches_since(f0)
+            if (since["lcgn_linear"], since["lcgn_linear_backward"]) != (2, 2):
+                fail(f"lcgn {K}->{Nout}: two calls of each kernel counted "
+                     f"{since}")
+            if not (torch.equal(y, y2) and all(
+                    (a is None and c is None) or torch.equal(a, c)
+                    for a, c in zip(grads, grads2))):
+                fail(f"lcgn {K}->{Nout}: two runs differ")
+            dx, dw, db = grads
+            if y[~mask].any() or dx[~mask].any():
+                fail(f"lcgn {K}->{Nout}: a padding row is not 0")
+            ref = ll.lcgn_linear_backward_reference(dy, x, w, mask,
+                                                    has_bias=bias)
+            ax, aw = torch.where(m, x, 0.0).abs(), w.abs()
+            ady = torch.where(m, dy, 0.0).abs()
+            within(y, ll.lcgn_linear_reference(x, w, b, mask), K + 1,
+                   ax @ aw.t() + (b.abs() if bias else 0.0),
+                   f"y {K}->{Nout}")
+            within(dx, ref[0], Nout, ady @ aw, f"dx {K}->{Nout}")
+            within(dw, ref[1], real, ady.t() @ ax, f"dw {K}->{Nout}")
+            if bias:
+                within(db, ref[2], real, ady.sum(0), f"db {K}->{Nout}")
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y_lib = torch.nn.functional.linear(xr, wr, b)
+            fns = {
+                "forward": (lambda: ll.lcgn_linear(x, w, b, rows),
+                            lambda: ll.lcgn_linear_reference(x, w, b, mask),
+                            lambda: torch.nn.functional.linear(x, w, b)),
+                "backward": (lambda: ll.lcgn_linear_backward(
+                                 dy, x, w, rows.perm, rows.count,
+                                 has_bias=bias),
+                             lambda: ll.lcgn_linear_backward_reference(
+                                 dy, x, w, mask, has_bias=bias),
+                             lambda: torch.autograd.grad(
+                                 y_lib, (xr, wr), dy, retain_graph=True))}
+            for kind, (fn, plain, lib) in fns.items():
+                ms, lib_ms = call_ms(fn, flush), call_ms(lib, flush)
+                if ms is None or lib_ms is None:
+                    fail(f"torch.profiler recorded no lcgn {kind} call")
+                bound, by = lcgn_bound_ms(real, N, K, Nout, bias,
+                                          kind == "backward")
+                timing[(kind, npg, K, Nout)] = dict(
+                    ms=ms, bound_ms=bound, bound_by=by,
+                    plain_ms=cuda_median_ms(plain), library_ms=lib_ms)
+                t = timing[(kind, npg, K, Nout)]
+                log(f"[lcgn] {kind:8s} npg {npg} {K:4d}->{Nout}: device "
+                    f"{ms * 1e3:.2f}us cold-L2 ({100 * bound / ms:.1f}% of "
+                    f"bound {bound * 1e3:.2f}us, {by}); plain "
+                    f"{t['plain_ms'] * 1e3:.1f}us (events); F.linear every "
+                    f"row {lib_ms * 1e3:.2f}us cold-L2; wrapper host "
+                    f"{host_us_per_call(fn):.2f}us/call")
+        log(f"[lcgn] npg {npg}: {real} real rows of {N} "
+            f"({100 * shares[npg]:.1f}% of the rows computed)")
+    for npg in LCGN_NPG:
+        sums = {(kind, key): sum(n * timing[(kind, npg, K, Nout)][key]
+                                 for (K, Nout, _), n in LCGN_LINEARS.items())
+                for kind in ("forward", "backward")
+                for key in ("ms", "library_ms", "bound_ms")}
+        log(f"[lcgn] one train step's linears at npg {npg} (cold L2, summed "
+            f"over {sum(LCGN_LINEARS.values())} linears): kernels "
+            f"{sums[('forward', 'ms')]:.3f} + {sums[('backward', 'ms')]:.3f}"
+            f" ms, bound {sums[('forward', 'bound_ms')]:.3f} + "
+            f"{sums[('backward', 'bound_ms')]:.3f} ms, F.linear every row "
+            f"{sums[('forward', 'library_ms')]:.3f} + "
+            f"{sums[('backward', 'library_ms')]:.3f} ms")
+    log(f"[lcgn] worst errors as shares of their round-off bounds: "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in worst.items())}; two runs "
+        f"bit for bit; padding rows 0")
+    return dict(timing=timing, worst=worst, shares=shares)
+
+
+def lcgn_summary(kind, phase, families):
+    """The kernels line's entry of the LCGN forward or backward: its
+    launches in phase 12's lcgn steps (3 requests and 3 train steps),
+    phase 17's worst readings, its times at npg 64 for 1,024 -> 512 (and
+    every shape) and the share of rows computed."""
+    name = "lcgn_linear" + ("" if kind == "forward" else "_backward")
+    main = phase["timing"][(kind, 64, 1024, 512)]
+    return {"name": name, "route": "cuda",
+            "source": f"graphvqa_tpu_torch/csrc/{name}.cu",
+            "replaces": "none: the JAX package's LCGN linears are XLA dots "
+                        "over every padded row (graphvqa_tpu/nn/gnn.py)",
+            "launches": families["lcgn"][name],
+            "launches_by_path": {f: families[f][name] for f in FAMILIES},
+            "max_err_share_of_round_off_bound": phase["worst"],
+            "rows_computed_share": phase["shares"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "ms_by_shape": {f"npg {npg} {K}->{n}": t["ms"]
+                            for (k, npg, K, n), t in phase["timing"].items()
+                            if k == kind}}
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -3702,6 +3913,8 @@ def main() -> None:
     done("15 layer-norm")
     gine = phase_gine(dev)
     done("16 gine")
+    lcgn = phase_lcgn(dev)
+    done("17 lcgn")
 
     card = card_line()
     fwd = kernel[("bfloat16", "graph", True)]
@@ -3758,6 +3971,8 @@ def main() -> None:
             kind, layer_norm, serve, train, cli, families, multi, graphs)
             for kind in ("forward", "backward")] + [
             gine_summary(kind, gine, families)
+            for kind in ("forward", "backward")] + [
+            lcgn_summary(kind, lcgn, families)
             for kind in ("forward", "backward")]}
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(card)

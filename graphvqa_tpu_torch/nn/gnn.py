@@ -55,6 +55,8 @@ from graphvqa_tpu_torch.ops import dense
 from graphvqa_tpu_torch.ops.dispatch import aggregate_edge_values
 from graphvqa_tpu_torch.ops.gat_round import gat_round, graph_logit_max
 from graphvqa_tpu_torch.ops.gine_messages import gine_messages
+from graphvqa_tpu_torch.ops.lcgn_linear import (
+    NodeRows, lcgn_linear, node_rows)
 from graphvqa_tpu_torch.parallel.collectives import assemble_rows, pmax
 from graphvqa_tpu_torch.ops.segment import (
     gather_nodes, scatter_edges_to_nodes, segment_softmax, segment_sum)
@@ -445,6 +447,13 @@ def _f32_linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return matmul_f32(x, lin.weight.t(), torch.float32)
 
 
+def _node_linear(x: torch.Tensor, lin: nn.Linear,
+                 rows: NodeRows) -> torch.Tensor:
+    """A node-wise float32 linear over the real node rows only, the padding
+    rows 0 (``ops/lcgn_linear.py``)."""
+    return lcgn_linear(x, lin.weight, lin.bias, rows)
+
+
 class LCGNCell(nn.Module):
     """The LCGN message-passing cell (JAX ``LCGNCell``): logit per edge
     ``<W_l x_src, proj_cmd * W_r x_dst>`` per head, LeakyReLU, destination
@@ -468,12 +477,22 @@ class LCGNCell(nn.Module):
         return (self.lin_l, self.lin_r, self.cal_x, self.proj_cmd,
                 self.cal_cmd)
 
-    def forward(self, graph: GraphBatch, x_joint, cmd, generator=None):
-        """x_joint [N, in_features], cmd [B, cmd_dim] -> [N, C] float32."""
+    def forward(self, graph: GraphBatch, x_joint, cmd, generator=None,
+                rows: Optional[NodeRows] = None):
+        """x_joint [N, in_features], cmd [B, cmd_dim] -> [N, C] float32.
+        ``rows``: the batch's :func:`node_rows` (built here when not
+        given)."""
         H, C, N = self.heads, self.out_channels, graph.nodes_pad
         src, dst = graph.edge_src, graph.edge_dst
-        x_l = _f32_linear(x_joint, self.lin_l)
-        x_r = _f32_linear(x_joint, self.lin_r).reshape(N, H, C)
+        if rows is None:
+            rows = node_rows(graph.node_mask)
+        # lin_l, lin_r and cal_x read all of x_joint: one linear of their
+        # weights stacked, its padding rows 0 (each consumer masks them)
+        w = torch.cat([self.lin_l.weight, self.lin_r.weight,
+                       self.cal_x.weight])
+        x_l, x_r, x_val = lcgn_linear(x_joint, w, None, rows).split(H * C,
+                                                                    dim=1)
+        x_r = x_r.reshape(N, H, C)
         proj_cmd = graph_to_nodes(graph, _f32_linear(cmd, self.proj_cmd))
         cal_cmd = graph_to_nodes(graph, _f32_linear(cmd, self.cal_cmd))
         x_mul = (proj_cmd.reshape(N, H, C) * x_r).reshape(N, H * C)
@@ -492,7 +511,7 @@ class LCGNCell(nn.Module):
             alpha = segment_softmax(logits, dst, N, mask=graph.edge_mask)
         rate = self.dropout if generator is not None else 0.0
         alpha = dropout(alpha, rate, generator)
-        x_val = _f32_linear(x_joint, self.cal_x).reshape(N, H, C)
+        x_val = x_val.reshape(N, H, C)
         cal_cmd = cal_cmd.reshape(N, H, C)
         if graph.has_dense_layout:
             out = dense.dense_scatter_matmul(graph, alpha, x_val * cal_cmd)
@@ -550,7 +569,11 @@ class LCGNSeq(nn.Module):
         encoding), lstm_outputs [B, L, q_dim] (the question memory) ->
         [N, C] float32. ``generator`` draws dropout (None: none)."""
         rate = self.dropout if generator is not None else 0.0
-        x_loc = dropout(self.init_sg_emb_input[0](x), rate, generator)
+        # the node-wise linears compute the real rows only, once a forward's
+        # row list; their padding rows are 0, which no real row reads
+        rows = node_rows(graph.node_mask)
+        x_loc = dropout(_node_linear(x, self.init_sg_emb_input[0], rows),
+                        rate, generator)
         if x_ctx is None:
             if ctx_generator is None:
                 raise ValueError("LCGN draws x_ctx at every forward: pass "
@@ -558,17 +581,20 @@ class LCGNSeq(nn.Module):
             x_ctx = torch.randn(x_loc.shape, generator=ctx_generator,
                                 dtype=x_loc.dtype, device=x_loc.device)
         q_emb = torch.relu(self.qInput1(q_encoding))
-        proj_x_loc = self.proj_x_loc[1](dropout(x_loc, rate, generator))
+        proj_x_loc = _node_linear(dropout(x_loc, rate, generator),
+                                  self.proj_x_loc[1], rows)
         memory = lstm_outputs.float()
         for t in range(self.max_iters):
             q_cmd = getattr(self, f"qInput2_{t}")(q_emb)           # [B, C]
             raw_att = self.cmd_inter2logits(q_cmd[:, None, :] * memory)
             att = torch.softmax(raw_att[..., 0], dim=-1)           # [B, L]
             cmd = torch.einsum("bl,bld->bd", att, memory)
-            proj_x_ctx = self.proj_x_ctx[1](dropout(x_ctx, rate, generator))
+            proj_x_ctx = _node_linear(dropout(x_ctx, rate, generator),
+                                      self.proj_x_ctx[1], rows)
             x_joint = torch.cat([x_loc, x_ctx, proj_x_ctx * proj_x_loc],
                                 dim=-1)
-            msg_aggr = self.lcgn(graph, x_joint, cmd, generator)
-            x_ctx = self.output_layer(torch.cat([x_ctx, msg_aggr], dim=-1))
-        out = self.fin_layer(torch.cat([x_loc, x_ctx], dim=-1))
-        return torch.where(graph.node_mask[:, None], out, 0.0)
+            msg_aggr = self.lcgn(graph, x_joint, cmd, generator, rows)
+            x_ctx = _node_linear(torch.cat([x_ctx, msg_aggr], dim=-1),
+                                 self.output_layer, rows)
+        return _node_linear(torch.cat([x_loc, x_ctx], dim=-1),
+                            self.fin_layer, rows)

@@ -42,11 +42,13 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 KERNEL_SOURCES = {name: CSRC / f"{name}.cu"
                   for name in ("gat_round", "gat_round_backward",
                                "layer_norm", "gine_messages",
-                               "gine_messages_backward")}
+                               "gine_messages_backward", "lcgn_linear",
+                               "lcgn_linear_backward")}
 # the kinds of launch the kernels count on the card, in the order the CLI
 # prints them
 KINDS = ("gat_round", "gat_round_backward", "layer_norm",
-         "layer_norm_backward", "gine_messages", "gine_messages_backward")
+         "layer_norm_backward", "gine_messages", "gine_messages_backward",
+         "lcgn_rows", "lcgn_linear", "lcgn_linear_backward")
 # the kernels' code for each float dtype they take
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[2]

@@ -36,6 +36,7 @@ from graphvqa_tpu_torch.ops import row_layer_norm as rln
 # may have another package named `tests`
 from torch_port_fixtures import (LAYER_NORM_ULPS, layer_norm_errors,
                                  layer_norm_rows, layer_norm_stats,
+                                 round_off_share, scene_law_mask,
                                  tiny_gat_seq, tiny_train_case)
 
 pytestmark = pytest.mark.cuda
@@ -669,9 +670,10 @@ def test_every_family_card_against_cpu(family):
     in float32: the eval logits (and the bitmap) within 1e-4 of the CPU's;
     one train step's loss to rtol 1e-5 and every gradient within 1e-4 of its
     tensor's largest |gradient| + 1e-7; the GAT kernels launch once per
-    round on onlysg and gat, never on gcn, gine and lcgn, and the GINE pair
-    once per round on gine only. LCGN's context features are one fixed
-    draw on both sides."""
+    round on onlysg and gat, never on gcn, gine and lcgn, the GINE pair
+    once per round on gine only, and LCGN's linears once each (and its row
+    list once a forward) on lcgn only. LCGN's context features are one
+    fixed draw on both sides."""
     import dataclasses
     import functools
     from graphvqa_tpu_torch.models.pipeline import build_model
@@ -690,6 +692,11 @@ def test_every_family_card_against_cpu(family):
                         generator=torch.Generator().manual_seed(0))
     rounds = cfg.model.engine.num_rounds if kind in ("gat", "none") else 0
     gine = cfg.model.engine.num_rounds if kind == "gine" else 0
+    # lcgn: one row list a forward; init_sg_emb_input, proj_x_loc and
+    # fin_layer, then proj_x_ctx, lin_l/lin_r/cal_x and output_layer per
+    # iteration, each one launch forward and one backward
+    lists = int(kind == "lcgn")
+    linears = (3 + 3 * cfg.model.engine.lcgn_iters) * lists
 
     runs = []
     for device in ("cpu", dev):
@@ -709,7 +716,10 @@ def test_every_family_card_against_cpu(family):
         launched = tuple(b[kind] - a[kind] for a, b, kind in (
             (f0, f1, "gat_round"), (f1, f2, "gat_round"),
             (f1, f2, "gat_round_backward"), (f0, f1, "gine_messages"),
-            (f1, f2, "gine_messages"), (f1, f2, "gine_messages_backward")))
+            (f1, f2, "gine_messages"), (f1, f2, "gine_messages_backward"),
+            (f0, f1, "lcgn_rows"), (f0, f1, "lcgn_linear"),
+            (f1, f2, "lcgn_rows"), (f1, f2, "lcgn_linear"),
+            (f1, f2, "lcgn_linear_backward")))
         bitmap = out.execution_bitmap
         runs.append((out.short_answer_logits.cpu(),
                      None if bitmap is None else bitmap.cpu(),
@@ -717,8 +727,9 @@ def test_every_family_card_against_cpu(family):
                      {n: p.grad.cpu() for n, p in model.named_parameters()
                       if p.grad is not None}))
     (lc, bc, loss_c, launched_c, gc), (lg, bg, loss_g, launched_g, gg) = runs
-    assert launched_c == (0,) * 6
-    assert launched_g == (rounds, rounds, rounds, gine, gine, gine)
+    assert launched_c == (0,) * 11
+    assert launched_g == (rounds, rounds, rounds, gine, gine, gine, lists,
+                          linears, lists, linears, linears)
     torch.testing.assert_close(lg, lc, rtol=1e-4, atol=1e-4)
     if exe:
         torch.testing.assert_close(bg, bc, rtol=1e-4, atol=1e-4)
@@ -1548,3 +1559,160 @@ def test_gine_kernel_stops_on_unsorted_edges():
                           cwd=pathlib.Path(__file__).resolve().parents[1])
     assert proc.returncode != 0, proc.stdout
     assert "assert" in proc.stderr.lower(), proc.stderr[-2000:]
+
+
+# --- LCGN's node-wise float32 linears (ops/lcgn_linear.py) -------------------
+
+LCGN = ("lcgn_rows", "lcgn_linear", "lcgn_linear_backward")
+# (rows, in features, out features) at the lcgn cell's shapes: B=200 at
+# npg 64 and 128; init_sg_emb_input, proj_x_{loc,ctx}, output_layer and
+# fin_layer, and lin_l / lin_r / cal_x stacked (1,536 -> 1,536)
+LCGN_SHAPES = [(200 * npg, k, n) for npg in (64, 128)
+               for k, n in ((300, 512), (512, 512), (1024, 512), (1536, 512),
+                            (1536, 1536))]
+
+
+def _lcgn_inputs(mask, K, Nout, bias, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    N = mask.shape[0]
+    return (randn(N, K), randn(Nout, K) / K ** 0.5,
+            randn(Nout) if bias else None, randn(N, Nout))
+
+
+def _within_round_off(got, want, n, scale):
+    """Within the float32 round-off bound of two sums of n terms
+    (torch_port_fixtures.round_off_share)."""
+    share = round_off_share(got, want, n, scale)
+    assert share <= 1.0, share
+
+
+def _lcgn_check(mask, K, Nout, bias, seed, dev):
+    """The pair against the plain versions run on the card (TF32 off): y,
+    dx, dW and db within _within_round_off, the padding rows of y and dx
+    exactly 0, one launch of each kernel; a second run bit for bit."""
+    from graphvqa_tpu_torch.ops import lcgn_linear as ll
+    assert not torch.backends.cuda.matmul.allow_tf32
+    mask = mask.to(dev)
+    x, w, b, dy = _lcgn_inputs(mask, K, Nout, bias, seed, dev)
+    runs = []
+    for _ in range(2):
+        f0 = launch_counts()
+        rows = ll.node_rows(mask)
+        y = ll.lcgn_linear(x, w, b, rows)
+        grads = ll.lcgn_linear_backward(dy, x, w, rows.perm, rows.count,
+                                        has_bias=bias)
+        torch.cuda.synchronize()
+        assert _since(f0, LCGN) == (1, 1, 1)
+        runs.append((rows.perm, rows.count, y) + grads)
+    for a, c in zip(*runs):
+        assert (a is None and c is None) or torch.equal(a, c)
+    perm, count = ll.node_rows_reference(mask)
+    assert torch.equal(runs[0][0], perm) and torch.equal(runs[0][1], count)
+    y, dx, dw, db = runs[0][2:]
+    y_ref = ll.lcgn_linear_reference(x, w, b, mask)
+    ref = ll.lcgn_linear_backward_reference(dy, x, w, mask, has_bias=bias)
+    m = mask[:, None]
+    ax, aw = torch.where(m, x, 0.0).abs(), w.abs()
+    ady = torch.where(m, dy, 0.0).abs()
+    real = int(count)
+    _within_round_off(y, y_ref, K + 1, ax @ aw.t() + (
+        b.abs() if bias else 0.0))
+    _within_round_off(dx, ref[0], Nout, ady @ aw)
+    _within_round_off(dw, ref[1], real, ady.t() @ ax)
+    if bias:
+        _within_round_off(db, ref[2], real, ady.sum(0))
+    else:
+        assert db is None
+    assert not y[~mask].any() and not dx[~mask].any()
+
+
+@pytest.mark.parametrize("N,K,Nout", LCGN_SHAPES)
+def test_lcgn_linear_pair_at_the_cell_shapes(N, K, Nout):
+    """The lcgn cell's shapes on a mask drawn from the traffic's scene law
+    (about 28 % real rows at npg 64, 14 % at 128)."""
+    dev = _device()
+    npg = N // 200
+    _lcgn_check(scene_law_mask(200, npg, seed=N + K), K, Nout,
+                bias=Nout == 512, seed=K, dev=dev)
+
+
+@pytest.mark.parametrize("case", ["all_real", "none_real", "one_full_block",
+                                  "odd_widths"])
+def test_lcgn_linear_pair_edge_cases(case):
+    """Every row real, no row real, one graph that fills its block among
+    dummy graphs (the flat layout's and the dense layout's masks are both
+    a row mask), and widths that take the one-float pieces (13 -> 7)."""
+    dev = _device()
+    N = 64 * 37
+    K, Nout = (13, 7) if case == "odd_widths" else (512, 512)
+    mask = {"all_real": torch.ones(N, dtype=torch.bool),
+            "none_real": torch.zeros(N, dtype=torch.bool),
+            "one_full_block": torch.arange(N) < 64,
+            "odd_widths": scene_law_mask(37, 64, seed=5)}[case]
+    _lcgn_check(mask, K, Nout, bias=True, seed=3, dev=dev)
+
+
+def test_lcgn_linear_pair_unaligned_rows():
+    """x and dy as views that start 4 bytes into their storage: the
+    kernels take the one-float pieces and give the same values."""
+    from graphvqa_tpu_torch.ops import lcgn_linear as ll
+    dev = _device()
+    mask = scene_law_mask(50, 64, seed=6).to(dev)
+    x, w, b, dy = _lcgn_inputs(mask, 512, 512, True, 7, dev)
+    xs = torch.empty(x.numel() + 1, device=dev)[1:].view_as(x).copy_(x)
+    dys = torch.empty(dy.numel() + 1, device=dev)[1:].view_as(dy).copy_(dy)
+    assert xs.data_ptr() % 16 and dys.data_ptr() % 16
+    rows = ll.node_rows(mask)
+    y = ll.lcgn_linear(x, w, b, rows)
+    ys = ll.lcgn_linear(xs, w, b, rows)
+    grads = ll.lcgn_linear_backward(dy, x, w, rows.perm, rows.count)
+    grads_s = ll.lcgn_linear_backward(dys, xs, w, rows.perm, rows.count)
+    torch.testing.assert_close(ys, y, rtol=0, atol=0)
+    for a, c in zip(grads_s, grads):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+def test_lcgn_linear_pair_through_autograd_and_a_cuda_graph():
+    """lcgn_linear on leaves that need gradients: the backward kernel's
+    gradients, x's only where it needs one; then the row list, forward and
+    backward captured once and replayed twice (the attribute set by the
+    eager launches): the eager bits, launches counted by the replays."""
+    from graphvqa_tpu_torch.ops import lcgn_linear as ll
+    dev = _device()
+    mask = scene_law_mask(200, 64, seed=8).to(dev)
+    x, w, b, dy = _lcgn_inputs(mask, 1024, 512, True, 9, dev)
+    rows = ll.node_rows(mask)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    f0 = launch_counts()
+    got = torch.autograd.grad(ll.lcgn_linear(*leaves, rows), leaves, dy)
+    frozen = torch.autograd.grad(ll.lcgn_linear(x, *leaves[1:], rows),
+                                 leaves[1:], dy)
+    torch.cuda.synchronize()
+    assert _since(f0, LCGN) == (0, 2, 2)
+    want = ll.lcgn_linear_backward(dy, x, w, rows.perm, rows.count)
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+    assert all(torch.equal(a, c) for a, c in zip(frozen, want[1:]))
+
+    def body():
+        r = ll.node_rows(mask)
+        return (ll.lcgn_linear(x, w, b, r),) + ll.lcgn_linear_backward(
+            dy, x, w, r.perm, r.count)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
+    with torch.cuda.graph(graph):
+        out = body()
+    for _ in range(2):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(out, eager))
+    assert _since(before, LCGN) == (2, 2, 2)

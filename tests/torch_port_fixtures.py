@@ -167,3 +167,25 @@ def layer_norm_errors(x, weight, bias, stats, y, y_ref, eps=1e-5):
     return (worst((mean - mean64).abs(), x64.abs().mean(dim=-1)),
             worst((rstd - rstd64).abs(), rstd64),
             worst(diff.double(), terms.double()))
+
+
+def scene_law_mask(B, npg, seed):
+    """node_mask [B * npg] bool of B graphs whose sizes follow the benchmark
+    traffic's scene law (``int(lognormvariate(2.7, 0.55)) + 2`` objects, cut
+    at npg), each graph's real rows first in its block, as the packer puts
+    them."""
+    import random
+    rng = random.Random(seed)
+    sizes = torch.tensor([min(npg, int(rng.lognormvariate(2.7, 0.55)) + 2)
+                          for _ in range(B)])
+    return (torch.arange(npg)[None, :] < sizes[:, None]).reshape(-1)
+
+
+def round_off_share(got, want, n, scale):
+    """The largest |got - want| as a share of 2 n 2^-24 scale, element by
+    element: each of two float32 sums of n products, taken in different
+    orders, lies within n u sum|terms| of the exact sum (u = 2^-24, the
+    float32 unit round-off), and ``scale`` is sum|terms|. At most 1 where
+    both are float32 sums of the same terms."""
+    bound = 2 * n * 2.0 ** -24 * scale + 1e-30
+    return float(((got - want).abs() / bound).max())
