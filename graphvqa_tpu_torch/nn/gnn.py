@@ -317,7 +317,12 @@ class GCNSeq(nn.Module):
     ``xw = W [h ; ins]``, the symmetric-degree-normalized sum over in-edges
     plus one implicit self-loop per node (GCNConv adds its own on top of the
     dataset's ``<self>`` edges), and the bias. ``fix_discarded_conv=False``
-    reproduces the released reference, whose convs never reach ``h``."""
+    reproduces the released reference, whose convs never reach ``h``.
+
+    With the program's tracing on, each round stamps ``engine`` after its
+    projection and ``engine_messages`` after the degree-normalized sum, the
+    self term and the bias, so the device segment ``engine_messages`` holds
+    the aggregation and ``engine`` the projections and BatchNorms."""
 
     def __init__(self, channels: int, ins_dim: int, num_rounds: int = 5,
                  dtype: torch.dtype = torch.float32, dropout: float = 0.0,
@@ -332,7 +337,7 @@ class GCNSeq(nn.Module):
     def forward(self, graph: GraphBatch, x, instr_vectors, generator=None,
                 use_running_average=True):
         """x [N, C], instr_vectors [R, B, ins_dim] -> h [N, C]."""
-        dt, N = self.compute_dtype, graph.nodes_pad
+        dt, N, dev = self.compute_dtype, graph.nodes_pad, x.device
         src, dst = graph.edge_src, graph.edge_dst
         ones = graph.edge_mask.float()
         if graph.has_dense_layout:
@@ -346,6 +351,7 @@ class GCNSeq(nn.Module):
         for i, conv in enumerate(self.convs):
             x_cat = torch.cat([h, graph_to_nodes(graph, instr_vectors[i])], dim=-1)
             xw = matmul_f32(x_cat, conv.weight, dt).to(dt)
+            profiling.stamp("engine", dev)
             if graph.has_dense_layout:
                 w_edge = torch.where(graph.edge_mask, edge_norm, 0.0)[:, None]
                 aggr = dense.dense_scatter_matmul(graph, w_edge,
@@ -354,6 +360,7 @@ class GCNSeq(nn.Module):
                 msgs = gather_nodes(xw, src) * edge_norm[:, None]
                 aggr = aggregate_edge_values(graph, msgs)
             conv_res = aggr + xw * self_norm[:, None] + conv.bias
+            profiling.stamp("engine_messages", dev)
             conv_res = torch.where(graph.node_mask[:, None], conv_res, 0.0)
             if self.fix_discarded_conv:
                 h = conv_res
